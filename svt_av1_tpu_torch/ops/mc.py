@@ -1,0 +1,52 @@
+"""Inter prediction helpers (AV1 convolve semantics) — port of the parts
+of svt_av1_tpu/ops/mc.py that low-delay-P encoding runs: the 8-tap
+interpolation kernels and the reference-plane padding.  The compound
+(``jnt_*``) helpers follow with hierarchical B.
+
+The per-block subpel filtering itself lives next to its callers in
+pipeline/inter_encoder.py (``_phase_grid``, ``_interp_patch``), which
+reproduce ref av1_convolve_{x,y,2d}_sr_c rounding case for case.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from svt_av1_tpu_torch import tables
+
+# frame-level interpolation_filter enum (spec 6.8.9 / ref EbDefinitions.h
+# InterpFilter): 0=EIGHTTAP_REGULAR, 1=EIGHTTAP_SMOOTH, 2=EIGHTTAP_SHARP
+FILTER_TABLES = ("subpel_filters_regular", "subpel_filters_smooth",
+                 "subpel_filters_sharp")
+
+
+@functools.lru_cache(maxsize=None)
+def kernel(phase: int, filt: int = 0) -> tuple:
+    """8-tap kernel for subpel phase 0..15 of one interp filter (spec
+    Subpel_Filters; ref sub_pel_filters_8/8smooth/8sharp,
+    EbInterPrediction.c:867-903)."""
+    k = tables.spec_tables()[FILTER_TABLES[filt]][phase]
+    return tuple(int(v) for v in k)
+
+
+def pad_for_filter(plane, pad: int):
+    """Edge-replicate pad by (pad+3) left/top and (pad+4) right/bottom,
+    as int32.
+
+    ``pad`` is the motion search range in pixels; +3/+4 is the 8-tap
+    halo.  Gathers into the result at [y+pad+3, x+pad+3] + mv stay in
+    bounds for |mv| <= pad.  Mirrors the reference's reference-picture
+    border extension (ref EbPictureBufferDesc padding + clamp_mv_ref).
+    """
+    return edge_pad(plane.to(torch.int32), pad + 3, pad + 4, pad + 3,
+                    pad + 4)
+
+
+def edge_pad(plane, top: int, bottom: int, left: int, right: int):
+    """Edge-replicate pad of a 2-D tensor (np.pad mode="edge")."""
+    h, w = plane.shape
+    rows = torch.arange(-top, h + bottom, device=plane.device).clamp(0, h - 1)
+    cols = torch.arange(-left, w + right, device=plane.device).clamp(0, w - 1)
+    return plane[rows[:, None], cols[None, :]]

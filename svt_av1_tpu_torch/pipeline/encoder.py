@@ -1,0 +1,402 @@
+"""Public encoder API of the port.
+
+Port of svt_av1_tpu/pipeline/encoder.py for the slice it covers: 8-bit
+CQP at preset 8, all-intra streams and low-delay-P (IPPP) chains with
+one reference (``EncoderConfig(intra_period=-1, pred_structure=0,
+scene_change_detection=False)``), with global motion, deblocking and
+CDEF.  Anything else raises ``NotImplementedError`` (config.check_slice).
+
+Dataflow per frame:
+  host pad  ->  device encode (intra wavefront or P step, PyTorch + the
+  CUDA tile gather)  ->  device->host copy of the step outputs  ->
+  host entropy tile (C++ coder, or pipeline.tile)  ->  OBU packetization
+
+Reference planes stay on the device between frames.  The reference
+package's TPU transfer packing (one-buffer uploads, packed fetches,
+sparse level packs) is not needed here: the outputs come back as plain
+host arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from svt_av1_tpu_torch.config import EncoderConfig, check_slice
+from svt_av1_tpu_torch.entropy import obu as O
+from svt_av1_tpu_torch.entropy.cdf_model import FrameContext
+from svt_av1_tpu_torch.io.yuv import Frame
+from svt_av1_tpu_torch.ops import cdef as CDEF
+from svt_av1_tpu_torch.ops import deblock as DB
+from svt_av1_tpu_torch.ops import mc as MC
+from svt_av1_tpu_torch.pipeline import analysis as AN
+from svt_av1_tpu_torch.pipeline import inter_encoder as PE
+from svt_av1_tpu_torch.pipeline import intra_encoder as IE
+from svt_av1_tpu_torch.pipeline.tile import TileWriter
+
+
+@dataclasses.dataclass
+class Packet:
+    """Output bitstream buffer (ref EbBufferHeaderType)."""
+    payload: bytes
+    pts: int
+    is_keyframe: bool
+    recon: Optional[Frame] = None
+    psnr: Optional[tuple] = None
+    qindex: Optional[int] = None
+
+
+def resolve_device(device) -> torch.device:
+    """The working device: CUDA unless the caller asks for the CPU.  A
+    CUDA device on a machine without one raises — there is no silent
+    fallback to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("svt_av1_tpu_torch: no CUDA device is available; "
+                           "pass device='cpu' to encode on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class Encoder:
+    """ref eb_init_handle + eb_svt_enc_set_parameter + eb_init_encoder."""
+
+    def __init__(self, config: EncoderConfig, device="cuda") -> None:
+        config.validate()
+        check_slice(config)
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.seq = O.SequenceParams(
+            config.width, config.height, config.bit_depth, config.sb_size,
+            enable_cdef=config.enable_cdef, enable_order_hint=False,
+            film_grain_present=False, enable_restoration=False,
+            enable_warped_motion=False, screen_content=False)
+        # frame-level interpolation filter: forced by config, or decided
+        # once per stream from open-loop stats of the first inter source
+        self._interp_filt = (config.interp_filter
+                             if config.interp_filter >= 0 else None)
+        # global motion (TRANSLATION, IPPP chains): open-loop per-frame
+        # estimate between consecutive sources
+        self._gm_enab = (config.enable_global_motion
+                         and config.pred_structure == 0)
+        self._gm_prev_src = None
+        self._send_idx = 0
+        self._packets: list[Packet] = []
+        self._ref_dev = None       # device recon planes of the last frame
+
+    # -- ref eb_svt_enc_stream_header ------------------------------------------
+    def stream_header(self) -> bytes:
+        return O.write_sequence_header(self.seq)
+
+    # -- ref eb_svt_enc_send_picture ---------------------------------------------
+    def send_picture(self, frame: Optional[Frame]) -> None:
+        """Encode the picture; its packet is then ready for get_packet.
+        send_picture(None) signals end-of-stream (nothing is buffered in
+        this slice)."""
+        if frame is None:
+            self.flush()
+            return
+        self._dispatch_one(frame)
+
+    def flush(self) -> None:
+        """End-of-stream: the IPPP / all-intra slice buffers no frames."""
+
+    def _is_key(self, idx: int) -> bool:
+        p = self.cfg.intra_period
+        if p == -2:
+            return True
+        if p == -1:
+            return idx == 0
+        return idx % (p + 1) == 0
+
+    def _frame_qindex(self) -> int:
+        return _qp_to_qindex(self.cfg.qp)
+
+    @property
+    def _geometry(self):
+        ph, pw = self.seq.mi_rows * 4, self.seq.mi_cols * 4
+        return ph, pw, -(-ph // 64) * 64, -(-pw // 64) * 64
+
+    def _to_dev(self, a: np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _upload_src(self, frame: Frame):
+        """The frame's planes edge-padded to the 64-padded geometry."""
+        _, _, ph64, pw64 = self._geometry
+        return (self._to_dev(IE.pad_plane(frame.y, ph64, pw64)),
+                self._to_dev(IE.pad_plane(frame.u, ph64 // 2, pw64 // 2)),
+                self._to_dev(IE.pad_plane(frame.v, ph64 // 2, pw64 // 2)))
+
+    def _as_ref_planes(self, y, u, v):
+        """Edge-pad recon planes to the 64-padded inter geometry (the
+        mirror decoder pads its references identically)."""
+        ph, pw, ph64, pw64 = self._geometry
+        return (MC.edge_pad(y, 0, ph64 - ph, 0, pw64 - pw),
+                MC.edge_pad(u, 0, (ph64 - ph) // 2, 0, (pw64 - pw) // 2),
+                MC.edge_pad(v, 0, (ph64 - ph) // 2, 0, (pw64 - pw) // 2))
+
+    def _pick_interp(self, frame: Frame, qindex: int) -> int:
+        """Resolve the stream's interpolation filter (spec
+        interpolation_filter; decided once, on the first inter frame)."""
+        if self._interp_filt is None:
+            self._interp_filt = AN.pick_interp_filter(
+                AN.analyze(frame.y), qindex, self.cfg.bit_depth)
+        return self._interp_filt
+
+    def _dispatch_one(self, frame: Frame) -> None:
+        """Keyframes via the wavefront intra path, P frames via the
+        bulk-parallel inter path; recon planes stay on the device between
+        frames."""
+        idx = self._send_idx
+        key = self._is_key(idx)
+        qindex = self._frame_qindex()
+        self._send_idx += 1
+        ph, pw, ph64, pw64 = self._geometry
+        if key or self._ref_dev is None:
+            dev, self._ref_dev = self._intra_dispatch(frame, qindex)
+            if self._gm_enab:
+                self._gm_prev_src = frame.y
+            pkt = self._make_packet(frame, dev, qindex)
+        else:
+            sy, su, sv = self._upload_src(frame)
+            gmv = None
+            if self._gm_enab and self._gm_prev_src is not None:
+                gmv = AN.estimate_global_translation(
+                    self._gm_prev_src, frame.y,
+                    max_fullpel=PE.SEARCH_RANGE - 1)
+                self._gm_prev_src = frame.y
+            lvls = self._lf_levels(qindex, False)
+            fn = PE.build_p_frame_encoder_dyn(
+                ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
+                cdef=self.cfg.enable_cdef, bd=self.cfg.bit_depth,
+                filt=self._pick_interp(frame, qindex), gm=self._gm_enab)
+            out = fn(sy, su, sv, *self._ref_dev, qindex, lvls[0], lvls[2],
+                     lvls[3], gmv or (0, 0))
+            self._ref_dev = self._as_ref_planes(
+                out[5][:ph, :pw], out[6][: ph // 2, : pw // 2],
+                out[7][: ph // 2, : pw // 2])
+            arrs = [a.cpu().numpy() for a in out]
+            pkt = self._make_inter_packet(frame, arrs, qindex, gmv)
+        pkt.pts = idx
+        self._packets.append(pkt)
+
+    def _intra_dispatch(self, frame: Frame, qindex: int):
+        """Keyframe: wavefront encode + in-loop filters on the device.
+        Returns (host dict for the packet writer, reference planes)."""
+        ph, pw, _, _ = self._geometry
+        src = (self._to_dev(IE.pad_plane(frame.y, ph, pw)),
+               self._to_dev(IE.pad_plane(frame.u, ph // 2, pw // 2)),
+               self._to_dev(IE.pad_plane(frame.v, ph // 2, pw // 2)))
+        out = IE.frame_step(IE.block_planes(src[0], 8),
+                            IE.block_planes(src[1], 4),
+                            IE.block_planes(src[2], 4), qindex,
+                            self.cfg.bit_depth)
+        planes = tuple(IE.unblock_planes(out[i]) for i in (4, 5, 6))
+        cdef_idx = None
+        if self.cfg.enable_deblocking or self.cfg.enable_cdef:
+            # per-cell coded-skip map (CDEF skips skip blocks, spec 7.15)
+            sk = ((out[1] == 0).all(-1).all(-1)
+                  & (out[2] == 0).all(-1).all(-1)
+                  & (out[3] == 0).all(-1).all(-1))
+            planes, cdef_idx = self._intra_postproc(planes, src, sk, qindex)
+        dev = {"modes": out[0].cpu().numpy(),
+               "levels_y": out[1].cpu().numpy(),
+               "levels_u": out[2].cpu().numpy(),
+               "levels_v": out[3].cpu().numpy(),
+               "cdef_idx": None if cdef_idx is None
+               else cdef_idx.cpu().numpy()}
+        if self._need_recon():
+            dev["recon_y"], dev["recon_u"], dev["recon_v"] = (
+                p.cpu().numpy() for p in planes)
+        return dev, self._as_ref_planes(*planes)
+
+    def _intra_postproc(self, planes, srcs, sk, qindex: int):
+        """Keyframe in-loop filters: deblock on the 8x8 (4x4 chroma) tx
+        grid, then the CDEF search + apply."""
+        ph, pw, _, _ = self._geometry
+        ly, _, lu, lv = self._lf_levels(qindex, True)
+        i32 = lambda a: a.to(torch.int32)
+        sz_y = torch.full((ph, pw), 8, dtype=torch.int32, device=self.device)
+        sz_c = torch.full((ph // 2, pw // 2), 4, dtype=torch.int32,
+                          device=self.device)
+        y = DB.deblock_plane(i32(planes[0]), sz_y, ly, ly, True)
+        u = DB.deblock_plane(i32(planes[1]), sz_c, lu, lu, False)
+        v = DB.deblock_plane(i32(planes[2]), sz_c, lv, lv, False)
+        idx_sb = torch.zeros((-(-ph // 64), -(-pw // 64)), dtype=torch.uint8,
+                             device=self.device)
+        if self.cfg.enable_cdef:
+            (y, u, v), idx_sb = CDEF.cdef_search_and_apply(
+                (y, u, v), tuple(i32(s) for s in srcs), sk,
+                CDEF.pick_damping(qindex))
+            idx_sb = idx_sb.to(torch.uint8)
+        px = lambda a: a.to(torch.uint8)
+        return (px(y), px(u), px(v)), idx_sb
+
+    def _make_inter_packet(self, frame: Frame, arrs, qindex: int,
+                           gmv) -> Packet:
+        cfg = self.cfg
+        lay = PE.inter_layout(1, False, False, lv8=False, lr=False)
+        sizes = arrs[lay["sizes"]]
+        mv = arrs[lay["mv"]].astype(np.int32)
+        packs = (arrs[lay["ly"]], arrs[lay["lu"]], arrs[lay["lv"]])
+        cdef_idx = arrs[lay["cdef"]] if cfg.enable_cdef else None
+        gm = {1: gmv} if gmv is not None else None
+        hm, wm = self.seq.mi_rows, self.seq.mi_cols
+        fc = FrameContext(qindex)
+        tile = None
+        if cfg.entropy_backend in ("auto", "cpp"):
+            from svt_av1_tpu_torch.entropy import backend as native
+            if native.available():
+                tile = native.encode_tile_inter_cpp(
+                    fc, hm, wm, qindex, sizes, mv, packs=packs,
+                    cdef_idx=cdef_idx, refs=None, sign_bias=None,
+                    mvs2=None, comp_pair=(1, 7), txty=None, gm=gm,
+                    qmap=None, delta_q_res=0)
+            elif cfg.entropy_backend == "cpp":
+                raise RuntimeError("C++ entropy backend unavailable")
+        if tile is None:
+            lv = {bs: tuple(_unpack_levels(packs[p], bs) for p in range(3))
+                  for bs in (8, 16, 32, 64)}
+            tw = TileWriter(fc, hm, wm, qindex, frame_mi=(hm, wm))
+            tile = tw.encode_inter(sizes, mv, lv, cdef_idx=cdef_idx, gm=gm)
+        hdr = {"refresh_frame_flags": 0x01}
+        if gm:
+            gm_types = [0] * 7
+            gm_trans = [(0, 0)] * 7
+            for rt, mv8g in gm.items():
+                gm_types[rt - 1] = 1
+                gm_trans[rt - 1] = tuple(int(x) for x in mv8g)
+            hdr["gm_types"] = tuple(gm_types)
+            hdr["gm_trans"] = tuple(gm_trans)
+        fp = O.FrameParams(base_q_idx=qindex, delta_q_res=0,
+                           tile_cols_log2=0, tile_rows_log2=0,
+                           frame_type=O.INTER_FRAME,
+                           interp_filter=(self._interp_filt or 0),
+                           filter_levels=self._lf_levels(qindex, False),
+                           film_grain=None, lr_types=(0, 0, 0),
+                           lr_uv_shift=1, switchable_motion_mode=False,
+                           allow_warped_motion=False,
+                           **hdr, **self._cdef_params(qindex))
+        payload = (O.temporal_delimiter()
+                   + O.write_frame_obu(self.seq, fp, tile))
+        recon = None
+        if self._need_recon():
+            recon = self._crop_recon(arrs[lay["rec_y"]], arrs[lay["rec_u"]],
+                                     arrs[lay["rec_v"]])
+        psnr = _psnr(frame, recon) if (cfg.stat_report and recon) else None
+        return Packet(payload, -1, False, recon, psnr, qindex=qindex)
+
+    def _make_packet(self, frame: Frame, dev: dict, qindex: int) -> Packet:
+        cfg = self.cfg
+        fc = FrameContext(qindex)
+        cdef_idx = dev.get("cdef_idx") if cfg.enable_cdef else None
+        tile = None
+        if cfg.entropy_backend in ("auto", "cpp"):
+            from svt_av1_tpu_torch.entropy import backend as native
+            if native.available():
+                tile = native.encode_tile_cpp(
+                    fc, self.seq.mi_rows, self.seq.mi_cols, qindex,
+                    dev["modes"].astype(np.uint8), dev["levels_y"],
+                    dev["levels_u"], dev["levels_v"], cdef_idx=cdef_idx)
+            elif cfg.entropy_backend == "cpp":
+                raise RuntimeError("C++ entropy backend unavailable")
+        if tile is None:
+            tw = TileWriter(fc, self.seq.mi_rows, self.seq.mi_cols, qindex)
+            tile = tw.encode(dev["modes"], dev["levels_y"], dev["levels_u"],
+                             dev["levels_v"], cdef_idx=cdef_idx)
+        fp = O.FrameParams(base_q_idx=qindex,
+                           tile_cols_log2=0, tile_rows_log2=0,
+                           filter_levels=self._lf_levels(qindex, True),
+                           order_hint=0, film_grain=None,
+                           lr_types=(0, 0, 0), lr_uv_shift=1,
+                           allow_screen_content=False, allow_intrabc=False,
+                           **self._cdef_params(qindex))
+        payload = (O.temporal_delimiter()
+                   + O.write_sequence_header(self.seq)
+                   + O.write_frame_obu(self.seq, fp, tile))
+        recon = None
+        if dev.get("recon_y") is not None:
+            recon = self._crop_recon(dev["recon_y"], dev["recon_u"],
+                                     dev["recon_v"])
+        psnr = (_psnr(frame, recon, cfg.bit_depth)
+                if (cfg.stat_report and recon) else None)
+        return Packet(payload, -1, True, recon, psnr, qindex=qindex)
+
+    def _crop_recon(self, y, u, v) -> Frame:
+        h, w = self.seq.height, self.seq.width
+        ch, cw = (h + 1) // 2, (w + 1) // 2
+        return Frame(y[:h, :w].astype(np.uint8), u[:ch, :cw].astype(np.uint8),
+                     v[:ch, :cw].astype(np.uint8))
+
+    def _need_recon(self) -> bool:
+        return self.cfg.recon_output or self.cfg.stat_report
+
+    def _cdef_params(self, qindex: int) -> dict:
+        if not self.cfg.enable_cdef:
+            return {}
+        return {"cdef_damping": CDEF.pick_damping(qindex),
+                "cdef_bits": CDEF.CDEF_BITS,
+                "cdef_y_strengths": CDEF.Y_STRENGTHS,
+                "cdef_uv_strengths": CDEF.UV_STRENGTHS}
+
+    def _lf_levels(self, qindex: int, is_key: bool) -> tuple:
+        if not self.cfg.enable_deblocking:
+            return (0, 0, 0, 0)
+        ly, lu, lv = DB.pick_filter_levels(qindex, is_key)
+        return (ly, ly, lu, lv)
+
+    # -- ref eb_svt_get_packet ----------------------------------------------------
+    def get_packet(self) -> Optional[Packet]:
+        return self._packets.pop(0) if self._packets else None
+
+    # -- ref eb_svt_get_recon ------------------------------------------------------
+    def get_recon(self) -> Optional[Frame]:
+        return self._packets[0].recon if self._packets else None
+
+    def encode_all(self, frames) -> Iterator[Packet]:
+        """Convenience: push frames, yield packets in decode order."""
+        for f in frames:
+            self.send_picture(f)
+            while True:
+                pkt = self.get_packet()
+                if pkt is None:
+                    break
+                yield pkt
+        self.flush()
+        while True:
+            pkt = self.get_packet()
+            if pkt is None:
+                break
+            yield pkt
+
+
+def _unpack_levels(packed: np.ndarray, bs: int) -> np.ndarray:
+    """Per-cell tile packing [nb8h, nb8w, t, t] -> [gh, gw, bs*t/8,
+    bs*t/8] leaf grids for leaf size bs (cells whose selected size
+    differs hold other leaves' tiles — the tile writer only reads
+    matching cells)."""
+    nb8h, nb8w, t, _ = packed.shape
+    k = bs // 8
+    gh, gw = nb8h // k, nb8w // k
+    return (packed.astype(np.int32)
+            .reshape(gh, k, gw, k, t, t).transpose(0, 2, 1, 4, 3, 5)
+            .reshape(gh, gw, k * t, k * t))
+
+
+def _qp_to_qindex(qp: int) -> int:
+    """Map 0..63 QP to 0..255 qindex (ref qp_scale semantics: ~4x)."""
+    return min(255, max(1, qp * 4))
+
+
+def _psnr(src: Frame, rec: Frame, bd: int = 8) -> tuple:
+    peak = float((1 << bd) - 1)
+
+    def p(a, b):
+        mse = ((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean()
+        return 99.0 if mse == 0 else 10 * np.log10(peak**2 / mse)
+
+    return (p(src.y, rec.y), p(src.u, rec.u), p(src.v, rec.v))

@@ -1,0 +1,595 @@
+"""P-frame encoder in PyTorch: batched ME + MC + transform coding with
+variable partitions.
+
+Port of svt_av1_tpu/pipeline/inter_encoder.py for the low-delay-P slice:
+``p_frame_step`` with nrefs=1, compound=False, rdo=False (preset 8),
+txs=False, rect=False, lr=False, aq=False, with or without the global
+motion candidate.  Inter prediction has no intra-frame dependency, so a
+P frame is one bulk-parallel program over every block:
+
+  hierarchical full-pel ME (HME centers, center-warped +-3 lattice)
+  -> fast SAD-domain partition merge (8/16/32/64)
+  -> one quarter-pel refinement per 8x8 cell against the true reference
+  -> MC at cell granularity -> residual coding at every leaf size
+  -> per-cell selection -> deblocking + CDEF.
+
+Every reference-patch read goes through ops.gather (the CUDA tile
+gather on the card).  The reference package's one-hot integer matmuls
+(tap selection, offset resolution) are indexing here.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from svt_av1_tpu_torch import tables as _tbl
+from svt_av1_tpu_torch.ops import cdef as CD
+from svt_av1_tpu_torch.ops import deblock as DB
+from svt_av1_tpu_torch.ops import gather as G
+from svt_av1_tpu_torch.ops import mc as MC
+from svt_av1_tpu_torch.ops import me as ME
+from svt_av1_tpu_torch.ops import quant as Q
+from svt_av1_tpu_torch.ops import transforms as T
+from svt_av1_tpu_torch.pipeline import rdo as RDO
+
+SEARCH_RANGE = 16   # full-pel luma search window (+-R)
+SIZES = (8, 16, 32)     # ME sweep sizes (the SAD pyramid's native levels)
+SIZES64 = (8, 16, 32, 64)   # leaf sizes incl. 64x64 (PARTITION_NONE at SB)
+TX_OF = {8: T.TX_8X8, 16: T.TX_16X16, 32: T.TX_32X32, 64: T.TX_64X64}
+TX_OF_C = {8: T.TX_4X4, 16: T.TX_8X8, 32: T.TX_16X16, 64: T.TX_32X32}
+# CDF-derived per-decision rate scalars (pipeline/rdo.py)
+_PART_BITS = RDO.partition_bits()      # {bs: (none_bits, split_bits)}
+_LEAF = RDO.inter_leaf_bits()          # mode / ref_single / comp_extra
+
+
+def inter_layout(nrefs: int, compound: bool, txs: bool, lv8: bool,
+                 lr: bool, rect: bool = False) -> dict:
+    """name -> output-tuple index for a p_frame_step build (the port
+    builds nrefs=1, compound/txs/lv8/lr/rect False: the first nine)."""
+    names = ["sizes", "mv", "ly", "lu", "lv", "rec_y", "rec_u", "rec_v",
+             "cdef"]
+    if nrefs >= 2:
+        names.append("ref8")
+    if compound:
+        names.append("mv2")
+    if txs:
+        names.append("txty")
+    if rect:
+        names.append("shape8")
+    if lv8:
+        names += ["small", "ly8", "lu8", "lv8",
+                  "lflags", "lcount", "ply", "plu", "plv"]
+    if lr:
+        names += ["deb_y", "deb_u", "deb_v"]
+    return {n: i for i, n in enumerate(names)}
+
+
+def _block(plane, bs: int):
+    h, w = plane.shape
+    return plane.reshape(h // bs, bs, w // bs, bs).transpose(1, 2)
+
+
+def _unblock(blocks):
+    nbh, nbw, bh, bw = blocks.shape
+    return blocks.transpose(1, 2).reshape(nbh * bh, nbw * bw)
+
+
+def _up(a, k: int):
+    return a if k == 1 else a.repeat_interleave(k, 0).repeat_interleave(k, 1)
+
+
+def _encode_plane(src_blocks, pred_blocks, qindex: int, tx_size: int,
+                  bd: int = 8, tx_type: int = T.DCT_DCT):
+    """[nbh, nbw, bh, bw] source + prediction -> (levels, recon) with
+    the f32 forward transform and the exact inverse."""
+    nbh, nbw, bh, bw = src_blocks.shape
+    resid = (src_blocks - pred_blocks).reshape(-1, bh, bw)
+    coeff = T.fwd_txfm2d_batch(resid, tx_size, tx_type, bd)
+    levels = Q.quantize_batch(coeff, qindex, tx_size, bd)
+    if T.TX_W[tx_size] > 32 or T.TX_H[tx_size] > 32:
+        # spec Adjusted_Tx_Size: only the top-left 32x32 coefficients of a
+        # dim-64 transform are coded — zero the rest so recon matches the
+        # decoder (which parses a 32x32 region into a zero 64x64 array)
+        keep = torch.zeros((T.TX_H[tx_size], T.TX_W[tx_size]),
+                           dtype=torch.bool, device=levels.device)
+        keep[:32, :32] = True
+        levels = torch.where(keep, levels, 0)
+    dq = Q.dequantize_batch(levels, qindex, tx_size, bd)
+    rec = T.inv_txfm2d_batch(dq, tx_size, tx_type, bd)
+    recon = torch.clamp(pred_blocks + rec.reshape(nbh, nbw, bh, bw), 0,
+                        (1 << bd) - 1)
+    return levels.reshape(nbh, nbw, bh, bw), recon
+
+
+def _phase_grid(patch, bs: int, bd: int, kern):
+    """Pixel-domain quarter-pel phase grid from a gathered patch.
+
+    patch: [ext, ext, N] int32, ext = bs + 8, gathered at offset -4
+    (filter halo + the -1 integer reach of negative deltas).  Returns
+    P[py][px] planes, each [bs+1, bs+1, N] int16 clipped pixels:
+    P[0][0] the full-pel copy, rows/cols 1..3 the 4/8/12 sixteenth-pel
+    phases, with av1_convolve_{x,y,2d}_sr_c rounding case-for-case."""
+    hi = (1 << bd) - 1
+
+    def hconv(p, ker):                               # -> [:, bs+1, N]
+        out = None
+        for k, c in enumerate(ker):
+            t = c * p[:, k: k + bs + 1, :]
+            out = t if out is None else out + t
+        return out
+
+    def vconv(p, ker):                               # -> [bs+1, :, N]
+        out = None
+        for k, c in enumerate(ker):
+            t = c * p[k: k + bs + 1, :, :]
+            out = t if out is None else out + t
+        return out
+
+    rs = lambda x, n: (x + (1 << (n - 1))) >> n
+    offset0 = 1 << (bd + 6)                          # 1 << (bd+FILTER_BITS-1)
+    offset_bits = bd + 11                            # bd + 2*7 - 3
+    sub = (1 << (bd - 1)) + (1 << (bd - 2))
+    i16 = lambda x: x.to(torch.int16)
+    P = [[None] * 4 for _ in range(4)]
+    P[0][0] = i16(patch[3: 4 + bs, 3: 4 + bs, :])
+    im = {}
+    for pxi, px in enumerate((4, 8, 12)):
+        # x-only (av1_convolve_x_sr_c rounding)
+        P[0][pxi + 1] = i16(torch.clamp(
+            rs(rs(hconv(patch[3: 4 + bs, :, :], kern[px]), 3), 4), 0, hi))
+        im[px] = rs(hconv(patch, kern[px]) + offset0, 3)
+    for pyi, py in enumerate((4, 8, 12)):
+        # y-only (av1_convolve_y_sr_c rounding)
+        P[pyi + 1][0] = i16(torch.clamp(
+            rs(vconv(patch[:, 3: 4 + bs, :], kern[py]), 7), 0, hi))
+        for pxi, px in enumerate((4, 8, 12)):
+            # 2-D (av1_convolve_2d_sr_c rounding)
+            P[pyi + 1][pxi + 1] = i16(torch.clamp(
+                rs(vconv(im[px], kern[py]) + (1 << offset_bits), 11) - sub,
+                0, hi))
+    return P
+
+
+def _filter_kern(filt: int):
+    table = _tbl.spec_tables()[MC.FILTER_TABLES[filt]]
+    return {p: tuple(int(v) for v in table[p]) for p in (4, 8, 12)}
+
+
+def _subpel_refine_dense(src_blocks, ref_pad, mv_fp, bs: int, pad: int,
+                         lam: int, prior8, bd: int = 8, filt: int = 0,
+                         lat_reach: int = 6):
+    """Dense quarter-pel refinement around full-pel MVs — ONE patch
+    gather per block, then every candidate of the 7x7 lattice
+    {-6..6 step 2}^2 (1/8-pel units) is a static slice of the on-patch
+    phase grid.  Used by the RD presets (ref HalfPelSearch_LCU /
+    QuarterPelSearch_LCU, EbMotionEstimation.c:3829/:4746)."""
+    kern = _filter_kern(filt)
+    nbh, nbw = mv_fp.shape[:2]
+    patch = G.gather_blocks_grid(ref_pad, mv_fp[..., 0], mv_fp[..., 1],
+                                 bs, pad, pad - 1, halo=8, off=-4)
+    patch = patch.permute(1, 2, 0).to(torch.int32)   # [ext, ext, N]
+    P = _phase_grid(patch, bs, bd, kern)
+    src = src_blocks.reshape(-1, bs, bs).permute(1, 2, 0).to(torch.int16)
+    dev = mv_fp.device
+    best_cost = None
+    best_mv = None
+    for dy in range(-lat_reach, lat_reach + 1, 2):
+        pyi = ((2 * dy) & 15) >> 2
+        fy = dy >> 3
+        for dx in range(-lat_reach, lat_reach + 1, 2):
+            pxi = ((2 * dx) & 15) >> 2
+            fx = dx >> 3
+            pred = P[pyi][pxi][fy + 1: fy + 1 + bs, fx + 1: fx + 1 + bs, :]
+            sad = (src - pred).abs().sum((0, 1), dtype=torch.int32
+                                         ).reshape(nbh, nbw)
+            mv8c = mv_fp * 8 + torch.tensor([dy, dx], dtype=torch.int32,
+                                            device=dev)
+            cost = sad + ((lam * ME.mv_rate_bits(mv8c - prior8)) >> 4)
+            if best_cost is None:
+                best_cost, best_mv = cost, mv8c
+            else:
+                better = cost < best_cost
+                best_cost = torch.where(better, cost, best_cost)
+                best_mv = torch.where(better[..., None], mv8c, best_mv)
+    return best_mv, best_cost
+
+
+@functools.lru_cache(maxsize=None)
+def _filter_table_on(filt: int, device: torch.device):
+    table = _tbl.spec_tables()[MC.FILTER_TABLES[filt]]
+    return torch.as_tensor(np.array(table, np.int32), device=device)
+
+
+def _interp_patch(patch, ph_r, ph_c, bs: int, bd: int, filt: int = 0):
+    """Per-block subpel interpolation on gathered patches.
+
+    patch: [N, bs+7, bs+7] full-pel windows (top-left at position - 3,
+    the 8-tap halo); ph_r/ph_c: [nbh, nbw] phase16 indices.  Reproduces
+    the reference's copy / x-only / y-only / 2-D rounding, selected per
+    block.  Returns [nbh, nbw, bs, bs] int32."""
+    table = _filter_table_on(filt, patch.device)         # [16, 8]
+    nbh, nbw = ph_r.shape
+    kx = table[ph_c.reshape(-1).long()]                  # [N, 8]
+    ky = table[ph_r.reshape(-1).long()]
+    p = patch.permute(1, 2, 0).to(torch.int32)           # [bs+7, bs+7, N]
+    rs = lambda x, n: (x + (1 << (n - 1))) >> n
+    hi = (1 << bd) - 1
+    offset0 = 1 << (bd + 6)
+    ob = bd + 11
+
+    def hconv(src):
+        out = None
+        for k in range(8):
+            t = src[:, k: k + bs, :] * kx[:, k]
+            out = t if out is None else out + t
+        return out                                       # [rows, bs, N]
+
+    def vconv(src):
+        out = None
+        for k in range(8):
+            t = src[k: k + bs] * ky[:, k]
+            out = t if out is None else out + t
+        return out                                       # [bs, cols, N]
+
+    hc = hconv(p)                                        # [bs+7, bs, N]
+    im = rs(hc + offset0, 3)
+    twod_acc = vconv(im)
+    sub = (1 << (bd - 1)) + (1 << (bd - 2))
+    twod = torch.clamp(rs(twod_acc + (1 << ob), 11) - sub, 0, hi)
+    x_only = torch.clamp(rs(rs(hc[3: 3 + bs], 3), 4), 0, hi)
+    y_only = torch.clamp(rs(vconv(p[:, 3: 3 + bs, :]), 7), 0, hi)
+    copy = p[3: 3 + bs, 3: 3 + bs, :]
+    phx0 = ph_c.reshape(-1) == 0
+    phy0 = ph_r.reshape(-1) == 0
+    out = torch.where(phx0 & phy0, copy,
+                      torch.where(phy0, x_only,
+                                  torch.where(phx0, y_only, twod)))
+    return out.permute(2, 0, 1).reshape(nbh, nbw, bs, bs)
+
+
+def _gather_mc_patch(plane_pad, mv8, bs: int, pad: int, chroma: bool):
+    """One grid-anchored patch gather for subpel MC; returns
+    (patch [N, bs+7, bs+7], ph_r, ph_c)."""
+    if chroma:
+        f_r, f_c = mv8[..., 0] >> 4, mv8[..., 1] >> 4
+        ph_r, ph_c = mv8[..., 0] & 15, mv8[..., 1] & 15
+    else:
+        f_r, f_c = mv8[..., 0] >> 3, mv8[..., 1] >> 3
+        ph_r, ph_c = (mv8[..., 0] * 2) & 15, (mv8[..., 1] * 2) & 15
+    patch = G.gather_blocks_grid(plane_pad, f_r, f_c, bs, pad, pad,
+                                 halo=7, off=-3)
+    return patch, ph_r, ph_c
+
+
+def _coeff_bits(lv):
+    """Per-block coefficient-rate estimate in bits from quantized levels
+    (3 + 2*bitlength(|l|) bits per nonzero plus an eob/skip term; ref
+    av1_estimate_syntax_rate, EbMdRateEstimation.c:76).  lv: [..., n, n]
+    -> [...] int32 bits."""
+    a = lv.abs()
+    nb = torch.ceil(torch.log2(a.to(torch.float32) + 1.0)).to(torch.int32)
+    bits = torch.where(a > 0, 3 + 2 * nb, 0).sum((-1, -2),
+                                                  dtype=torch.int32)
+    nz = (a > 0).any(-1).any(-1)
+    return bits + torch.where(nz, 4, 1)
+
+
+def _sum4(a):
+    """[2H, 2W] -> [H, W] 2x2 block sum."""
+    return a.reshape(a.shape[0] // 2, 2, a.shape[1] // 2, 2).sum(
+        (1, 3), dtype=a.dtype)
+
+
+def _tiles8(x, t: int):
+    """[gh, gw, bh, bw] block grid -> [gh*bh/t, gw*bw/t, t, t] tile grid."""
+    gh, gw, bh, bw = x.shape
+    kh, kw = bh // t, bw // t
+    return (x.reshape(gh, gw, kh, t, kw, t).permute(0, 2, 1, 4, 3, 5)
+            .reshape(gh * kh, gw * kw, t, t))
+
+
+def _inside_masks(ph: int, pw: int, mi_rows: int, mi_cols: int):
+    """Static edge-legality masks for the 16/32/64 merge levels: a node
+    may stay whole only when it lies inside the coded frame."""
+    cells_h, cells_w = mi_rows // 2, mi_cols // 2   # 8x8 cells in frame
+    out = {}
+    for bs in (16, 32, 64):
+        k = bs // 8
+        r = np.arange(ph // bs)[:, None]
+        c = np.arange(pw // bs)[None, :]
+        out[bs] = (r * k + k <= cells_h) & (c * k + k <= cells_w)
+    return out
+
+
+def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
+                 search: int = SEARCH_RANGE, nrefs: int = 1,
+                 compound: bool = False, bd: int = 8, rdo: bool = False,
+                 txs: bool = False, filt: int = 0, gm: bool = False,
+                 lr: bool = False, rect: bool = False, filters: bool = True,
+                 aq: bool = False, cdef: bool = True):
+    """Build the P-frame encode step (a plain callable).
+
+    Geometry: ph, pw are the 64-padded plane dims; mi_rows/mi_cols the
+    frame's mode-info grid.
+    step(sy [ph,pw], su, sv [ph/2,pw/2], ref_y, ref_u, ref_v, qindex,
+         lf_y, lf_u, lf_v, gmv=None)
+    -> (sizes [nb8h,nb8w] u8 (8..64 leaf size covering each 8x8 cell),
+        mv8 [nb8h,nb8w,2] i16 (selected leaf MV in 1/8 pel),
+        ly [nb8h,nb8w,8,8], lu, lv [nb8h,nb8w,4,4] i16 per-cell levels,
+        recon_y [ph,pw] u8, recon_u, recon_v, cdef idx [sb rows, sb cols]
+        u8) — inter_layout(1, False, False, False, False) order.
+    qindex and the loop-filter levels are Python ints; gmv is the
+    frame's (row, col) global translation in 1/8 pel (gm=True only).
+    """
+    unported = {"nrefs>1": nrefs != 1, "compound": compound,
+                "bit_depth=10": bd != 8, "rdo": rdo, "txs": txs,
+                "rect": rect, "lr": lr, "aq": aq,
+                "filters=False": not filters}
+    off = [k for k, v in unported.items() if v]
+    if off:
+        raise NotImplementedError(f"p_frame_step: {', '.join(off)} "
+                                  "not ported")
+    pad = search + 1
+    cpad = pad // 2 + 1
+    nb8h, nb8w = ph // 8, pw // 8
+    ph_mi, pw_mi = mi_rows * 4, mi_cols * 4
+    inside = _inside_masks(ph, pw, mi_rows, mi_cols)
+    ac_table = _tbl.spec_tables()[f"ac_qlookup_{bd}"]
+    kern_c = _filter_kern(filt)
+    # fast-merge overheads (mode + partition symbols, lambda-scaled below)
+    mb = _LEAF["mode"]
+    oh_bits = {bs: round(mb + _PART_BITS[bs][0]) for bs in SIZES64}
+    sp_bits = {bs: round(_PART_BITS[bs][1]) for bs in (16, 32, 64)}
+    # merged-cell refinement lattice: 5x5 quarter-pel offsets (1/8 units)
+    reach_q = 4
+    cand = [(dy, dx) for dy in range(-reach_q, reach_q + 1, 2)
+            for dx in range(-reach_q, reach_q + 1, 2)]
+
+    def step(sy, su, sv, ry, ru, rv, qindex: int, lf_y: int, lf_u: int,
+             lf_v: int, gmv=None):
+        dev = sy.device
+        q = int(qindex)
+        lam = max(8, int(ac_table[q]) // 4)
+        lf_levels = (int(lf_y), int(lf_y), int(lf_u), int(lf_v))
+        ins = {bs: torch.as_tensor(m, device=dev) for bs, m in inside.items()}
+        sy = sy.to(torch.int32)
+        su = su.to(torch.int32)
+        sv = sv.to(torch.int32)
+        py_pad = MC.pad_for_filter(ry, pad)
+        pu_pad = MC.pad_for_filter(ru, cpad)
+        pv_pad = MC.pad_for_filter(rv, cpad)
+
+        # --- hierarchical full-pel ME: quarter-res center search, then a
+        # +-r2 multi-size sweep on the center-warped reference ---------
+        r2 = 3
+        centers = ME.hme_centers(sy, ry.to(torch.int32),
+                                 search_reach=search - r2)
+        ref_pad = MC.edge_pad(ry, search, search, search, search)
+        warped = ME.warp_by_centers(ref_pad, centers, 32, search)
+        lat = ME.sad_lattice_multisize(sy, warped, r2, bd)
+        p1 = ME.select_from_lattice(lat, centers, 32, r2)
+        priors = {bs: ME.median3_mv_field(p1[bs][0]) for bs in SIZES}
+        p2 = ME.select_from_lattice(lat, centers, 32, r2, lam, priors)
+        priors[64] = priors[32][::2, ::2]
+        mv = {bs: p2[bs][0] * 8 for bs in SIZES}     # 1/8-pel units
+        cost = {bs: p2[bs][1] for bs in SIZES}
+        # the 64 level straight from the lattice (2x2 sums of the 32 level)
+        lat64 = _blocksum2(lat[32])
+        cen64 = centers[::2, ::2]
+        dyx64 = ME._offset_table(r2, dev)
+        c64 = lat64 + ((lam * ME.mv_rate_bits(
+            (cen64[None] + dyx64[:, None, None, :]) * 8
+            - priors[64][None] * 8)) >> 4)
+        k64 = torch.argmin(c64, 0)
+        mv[64] = (cen64 + dyx64[k64]) * 8
+        cost[64] = c64.min(0).values
+
+        if gm:
+            # GLOBALMV candidate: the estimator emits FULL-pel global
+            # vectors, so one copy-gather at the 8 level + 2x2 sums score
+            # every size; charged mode bits but no MV bits
+            g = (0, 0) if gmv is None else (int(gmv[0]), int(gmv[1]))
+            full = lambda v: torch.full((nb8h, nb8w), v >> 3,
+                                        dtype=torch.int32, device=dev)
+            tiles = G.gather_blocks_grid(py_pad, full(g[0]), full(g[1]),
+                                         8, pad, pad - 1)
+            sadg = {8: (_block(sy, 8) - tiles.reshape(nb8h, nb8w, 8, 8)
+                        .to(torch.int32)).abs().sum((-1, -2),
+                                                    dtype=torch.int32)}
+            for bs in (16, 32, 64):
+                sadg[bs] = _sum4(sadg[bs // 2])
+            mvg_one = torch.tensor(g, dtype=torch.int32, device=dev)
+            for bs in SIZES64:
+                costg = sadg[bs] + ((lam * 4) >> 4)
+                use_g = costg < cost[bs]
+                mv[bs] = torch.where(use_g[..., None], mvg_one, mv[bs])
+                cost[bs] = torch.minimum(costg, cost[bs])
+
+        # --- fast SAD-domain rate-biased partition merge ---------------
+        oh = {bs: (lam * oh_bits[bs]) >> 4 for bs in SIZES64}
+        sp = {bs: (lam * sp_bits[bs]) >> 4 for bs in (16, 32, 64)}
+        j8 = cost[8] + oh[8]
+        j_split16 = _sum4(j8) + sp[16]
+        j16 = cost[16] + oh[16]
+        use16 = (j16 <= j_split16) & ins[16]
+        j_at16 = torch.where(use16, j16, j_split16)
+        j_split32 = _sum4(j_at16) + sp[32]
+        j32 = cost[32] + oh[32]
+        use32 = (j32 <= j_split32) & ins[32]
+        j_at32 = torch.where(use32, j32, j_split32)
+        j_split64 = _sum4(j_at32) + sp[64]
+        j64 = cost[64] + oh[64]
+        use64 = (j64 <= j_split64) & ins[64]
+
+        # per-8x8-cell leaf-kind map: 0..3 = square 8/16/32/64
+        kind8 = torch.where(_up(use64, 8), 3,
+                            torch.where(_up(use32, 4), 2,
+                                        torch.where(_up(use16, 2), 1, 0)))
+        size8 = (8 << kind8).to(torch.uint8)
+
+        def kpick(per_kind, dtype):
+            """Per-cell select over leaf kinds ({kind: cell array})."""
+            out = per_kind[0]
+            for k in (1, 2, 3):
+                m = kind8 == k
+                v = per_kind[k]
+                if v.dim() > m.dim():
+                    m = m.reshape(m.shape + (1,) * (v.dim() - m.dim()))
+                out = torch.where(m, v, out)
+            return out.to(dtype)
+
+        sq_cells = lambda d: {0: d[8], 1: _up(d[16], 2), 2: _up(d[32], 4),
+                              3: _up(d[64], 8)}
+
+        # --- merged-cell quarter-pel refinement: each cell anchors at its
+        # leaf's full-pel winner; a shared 25-candidate lattice is scored
+        # per cell against the TRUE reference, and each LEAF picks the
+        # candidate minimizing the sum of its cells' SADs (+ MV rate) ---
+        dyx_c = torch.tensor(cand, dtype=torch.int32, device=dev)
+        src8T = _block(sy, 8).reshape(-1, 8, 8).permute(1, 2, 0).to(
+            torch.int16)
+        mvc8 = kpick(sq_cells(mv), torch.int32)
+        patch = G.gather_blocks_grid(py_pad, mvc8[..., 0] >> 3,
+                                     mvc8[..., 1] >> 3, 8, pad, pad - 1,
+                                     halo=8, off=-4)
+        P = _phase_grid(patch.permute(1, 2, 0).to(torch.int32), 8, bd,
+                        kern_c)
+        sads = []
+        for dy, dx in cand:
+            pyi, pxi = ((2 * dy) & 15) >> 2, ((2 * dx) & 15) >> 2
+            fy, fx = dy >> 3, dx >> 3
+            pred = P[pyi][pxi][fy + 1: fy + 9, fx + 1: fx + 9, :]
+            sads.append((src8T - pred).abs().sum((0, 1), dtype=torch.int32)
+                        .reshape(nb8h, nb8w))
+        lvl = torch.stack(sads)
+        idx_l = {}
+        for bs in SIZES64:
+            if bs > 8:
+                lvl = _blocksum2(lvl)
+            cl = lvl + ((lam * ME.mv_rate_bits(
+                mv[bs][None] + dyx_c[:, None, None, :]
+                - priors[bs][None] * 8)) >> 4)
+            idx_l[bs] = torch.argmin(cl, 0)
+        kcell = kpick({ki: _up(idx_l[bs_], bs_ // 8)
+                       for ki, bs_ in enumerate(SIZES64)}, torch.long)
+        mv_sel = (mvc8 + dyx_c[kcell]).to(torch.int16)
+
+        # --- motion compensation ONCE at selected-cell granularity (the
+        # interpolation is translation-invariant, so MCing a leaf equals
+        # MCing its 8x8 luma / 4x4 chroma cells with the same MV) -------
+        mv32 = mv_sel.to(torch.int32)
+
+        def mc_one(plane_pad, chroma, bs2, pad2):
+            pt, r0, c0 = _gather_mc_patch(plane_pad, mv32, bs2, pad2, chroma)
+            return _unblock(_interp_patch(pt, r0, c0, bs2, bd, filt))
+
+        pred_y_pl = mc_one(py_pad, False, 8, pad)
+        pred_u_pl = mc_one(pu_pad, True, 4, cpad)
+        pred_v_pl = mc_one(pv_pad, True, 4, cpad)
+
+        # --- residual coding at every size against the selected pred ----
+        levels, rec_planes = {}, {}
+        for bs in SIZES64:
+            cbs = bs // 2
+            ly, rec_y = _encode_plane(_block(sy, bs), _block(pred_y_pl, bs),
+                                      q, TX_OF[bs], bd)
+            lu, rec_u = _encode_plane(_block(su, cbs),
+                                      _block(pred_u_pl, cbs), q,
+                                      TX_OF_C[bs], bd)
+            lv, rec_v = _encode_plane(_block(sv, cbs),
+                                      _block(pred_v_pl, cbs), q,
+                                      TX_OF_C[bs], bd)
+            levels[bs] = (ly.to(torch.int16), lu.to(torch.int16),
+                          lv.to(torch.int16))
+            rec_planes[bs] = (_unblock(rec_y), _unblock(rec_u),
+                              _unblock(rec_v))
+
+        # --- final recon: per-cell select of the chosen leaf's recon -----
+        def select_plane(idx_plane, shift):
+            km = _up(kind8, 8 >> shift)
+            out = rec_planes[8][idx_plane]
+            for k, bs_ in ((1, 16), (2, 32), (3, 64)):
+                out = torch.where(km == k, rec_planes[bs_][idx_plane], out)
+            return out
+
+        rec_y = select_plane(0, 0)
+        rec_u = select_plane(1, 1)
+        rec_v = select_plane(2, 1)
+
+        # --- level pack: per 8x8 cell, the SELECTED leaf's tiles --------
+        def pack_cells(pidx, t):
+            return kpick({i: _tiles8(levels[bs_][pidx], t)
+                          for i, bs_ in enumerate(SIZES64)}, torch.int16)
+
+        ly_pack = pack_cells(0, 8)
+        lu_pack = pack_cells(1, 4)
+        lv_pack = pack_cells(2, 4)
+
+        # --- in-loop filters over the mi-grid region (the decoder filters
+        # exactly [ph_mi, pw_mi]; the pad margin is edge-replicated) ----
+        crop = lambda p2, sh: p2[: ph_mi >> sh, : pw_mi >> sh]
+        cy, cu, cv = crop(rec_y, 0), crop(rec_u, 1), crop(rec_v, 1)
+        sz8 = size8[: ph_mi // 8, : pw_mi // 8].to(torch.int32)
+        idx_sb = torch.zeros((-(-ph_mi // 64), -(-pw_mi // 64)),
+                             dtype=torch.uint8, device=dev)
+        upy = _up(sz8, 8)
+        upc = _up(sz8 >> 1, 4)
+        cy = DB.deblock_plane(cy, upy, lf_levels[0], lf_levels[1], True,
+                              bd=bd)
+        cu = DB.deblock_plane(cu, upc, lf_levels[2], lf_levels[2], False,
+                              bd=bd)
+        cv = DB.deblock_plane(cv, upc, lf_levels[3], lf_levels[3], False,
+                              bd=bd)
+
+        if cdef:
+            # per-8x8-unit skip: the selected LEAF has all-zero levels
+            def skipmap(lv3, rep):
+                z = ((lv3[0] == 0).all(-1).all(-1)
+                     & (lv3[1] == 0).all(-1).all(-1)
+                     & (lv3[2] == 0).all(-1).all(-1))
+                return _up(z, rep)
+
+            sk = kpick({i: skipmap(levels[bs_], bs_ // 8)
+                        for i, bs_ in enumerate(SIZES64)},
+                       torch.bool)[: sz8.shape[0], : sz8.shape[1]]
+            damping = CD.pick_damping(q)
+            (cy, cu, cv), idx_sb = CD.cdef_search_and_apply(
+                (cy, cu, cv), (crop(sy, 0), crop(su, 1), crop(sv, 1)), sk,
+                damping)
+            idx_sb = idx_sb.to(torch.uint8)
+
+        repad = lambda core, like: MC.edge_pad(
+            core, 0, like.shape[0] - core.shape[0], 0,
+            like.shape[1] - core.shape[1]).to(torch.uint8)
+        return (size8, mv_sel, ly_pack, lu_pack, lv_pack,
+                repad(cy, rec_y), repad(cu, rec_u), repad(cv, rec_v),
+                idx_sb)
+
+    return step
+
+
+def _blocksum2(lat):
+    """[n, 2h, 2w] -> [n, h, w] 2x2 sums (lattice levels)."""
+    n, h, w = lat.shape
+    return lat.reshape(n, h // 2, 2, w // 2, 2).sum((2, 4),
+                                                    dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=4)
+def build_p_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
+                              search: int = SEARCH_RANGE,
+                              cdef: bool = False, bd: int = 8,
+                              rdo: bool = False, txs: bool = False,
+                              filt: int = 0, gm: bool = False,
+                              lr: bool = False, rect: bool = False,
+                              filters: bool = True, aq: bool = False):
+    """The P step for one geometry: step(sy, su, sv, ref_y, ref_u, ref_v,
+    qindex, lf_y, lf_u, lf_v[, gmv]) — every qindex runs the same
+    callable (counterpart of the reference's jitted dynamic-q
+    build_p_frame_encoder_dyn)."""
+    return p_frame_step(ph, pw, mi_rows, mi_cols, search=search, bd=bd,
+                        rdo=rdo, txs=txs, filt=filt, gm=gm, lr=lr,
+                        rect=rect, filters=filters, aq=aq, cdef=cdef)

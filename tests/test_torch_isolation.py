@@ -1,0 +1,102 @@
+"""The port runs without JAX and without the reference package.
+
+A subprocess drops every jax / jaxlib / svt_av1_tpu module (the test
+environment may preload jax at interpreter start), installs an import
+hook that refuses them, imports every module of svt_av1_tpu_torch and
+chip_smoke (without running it), and encodes a 64x64 IPPP clip on the
+CPU end to end."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import sys
+BLOCKED = ("jax", "jaxlib", "svt_av1_tpu")
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, sys.argv[1])
+import importlib
+import pkgutil
+
+import svt_av1_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(svt_av1_tpu_torch.__path__,
+                                               "svt_av1_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke  # noqa: F401  (main() is not run)
+
+from svt_av1_tpu_torch import EncoderConfig
+from svt_av1_tpu_torch.io.yuv import synthetic_frame
+from svt_av1_tpu_torch.pipeline.encoder import Encoder
+cfg = EncoderConfig(width=64, height=64, qp=40, intra_period=-1,
+                    pred_structure=0, scene_change_detection=False,
+                    recon_output=True)
+pkts = list(Encoder(cfg, device="cpu").encode_all(
+    [synthetic_frame(64, 64, seed=i) for i in range(3)]))
+assert len(pkts) == 3 and pkts[0].is_keyframe
+assert all(len(p.payload) > 0 for p in pkts)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("modules", len(names), "packets", [len(p.payload) for p in pkts])
+"""
+
+
+def test_port_imports_and_encodes_with_jax_blocked():
+    res = subprocess.run([sys.executable, "-c", _CHILD, str(ROOT)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "packets" in res.stdout
+
+
+def test_no_silent_cpu_fallback_without_a_gpu():
+    """Without a card: Encoder's default device raises, and so does the
+    CUDA gather entry on CPU tensors (no fallback to the plain one)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-GPU refusal does not "
+                    "apply")
+    from svt_av1_tpu_torch import EncoderConfig
+    from svt_av1_tpu_torch.ops import gather as G
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder, resolve_device
+    cfg = EncoderConfig(width=64, height=64, intra_period=-1,
+                        pred_structure=0, scene_change_detection=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Encoder(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    plane = torch.zeros((16, 16), dtype=torch.int32)
+    idx = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(RuntimeError):
+        G.gather_tiles_cuda(plane, idx, idx, 8, 8)
+
+
+def test_chip_smoke_refuses_without_a_gpu(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result without a card,
+    and in a directory that holds nothing else of the repository."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, lone)):
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout

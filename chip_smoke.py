@@ -10,18 +10,29 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 prints nvidia-smi's name and power limit;
   2. build    — nvcc builds csrc/gather_tiles.cu and g++ builds the C++
                 entropy coder into build/svt_av1_tpu_torch/, together;
-  3. kernel   — the tile-gather kernel against its plain PyTorch version
-                at every 720p call-site shape, exact equality (tolerance
-                0), with CUDA-event times of the kernel, the plain
-                version, one torch.take call and the byte bound;
+  3. kernel   — both designs of the tile-gather kernel (the main
+                path's and the first port's v1, a yardstick) against its
+                plain PyTorch version at every 720p call-site shape and
+                at awkward shapes (odd widths, edge and off-contract
+                starts, three dtypes), exact equality (tolerance 0);
   4. main     — the 720p low-delay-P encode (1 keyframe + 7 P frames,
                 qp 40, preset 8) through Encoder.send_picture/get_packet;
-                the gather launch count must be above 0;
+                the gather must launch 6 times per P frame;
   5. parity   — a 320x192 clip (1 keyframe + 2 P) encoded on the card
-                and on the CPU must give byte-identical packets.
+                and on the CPU must give byte-identical packets;
+  6. timing   — at each call site, for both designs, one torch.take
+                call and the plain version: event ms (CUDA events around
+                20 back-to-back calls) and host us per call (perf_counter
+                around 200 calls issued without a synchronise) at every
+                site, then device us per call (torch.profiler kernel
+                time over 20 calls) at every site, beside the byte
+                bound.  Last, because a profiler session may slow every
+                later launch.
 
 The second-to-last line is the kernels JSON, the last line
-{"ok": true, "device": {...}}.  --out DIR also writes the per-shape and
+{"ok": true, "device": {...}}.  For gather_tiles its ms, device_ms,
+host_us, plain_ms, bound_ms and library_ms are sums over the six
+launches of one 720p P frame.  --out DIR also writes the per-shape and
 per-frame numbers to DIR/chip_smoke.json.  Imports neither JAX nor the
 JAX package.
 """
@@ -61,6 +72,36 @@ def cuda_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, iters: int = 20):
+    """Kernel time per call in us from torch.profiler (sum of every CUDA
+    kernel of iters calls / iters); None if the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / iters if total > 0 else None
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call in us: calls issued without a synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def call_sites(torch, MC, G, gen, dev):
     """(name, per-P-frame launches on the main path, plane, base_r,
     base_c, gather_tiles kwargs) at the 720p shapes of every call site.
@@ -83,10 +124,9 @@ def call_sites(torch, MC, G, gen, dev):
     ref_pad = MC.edge_pad(ry, search, search, search, search)
     th, tw = ph // 32, pw // 32
     cen = mv((th, tw, 2), 13)
-    br = (torch.arange(th, device=dev)[:, None] * 32 + search
-          + cen[..., 0]).reshape(-1)
-    bc = (torch.arange(tw, device=dev)[None, :] * 32 + search
-          + cen[..., 1]).reshape(-1)
+    ar = lambda k: torch.arange(k, dtype=torch.int32, device=dev)
+    br = (ar(th)[:, None] * 32 + search + cen[..., 0]).reshape(-1)
+    bc = (ar(tw)[None, :] * 32 + search + cen[..., 1]).reshape(-1)
     sites.append(("warp_by_centers", 1, ref_pad, br, bc,
                   dict(nbh=th, nbw=tw, stride=32, band_off=0,
                        band_h=2 * search + 32, th=32, tw=32)))
@@ -124,51 +164,143 @@ def flat_index(torch, plane, br, bc, th, tw):
     return rows[:, :, None] * wp + cols[:, None, :]
 
 
+# (dtype, Hp, Wp, th, tw, nbh, nbw): odd and word-sized tile widths,
+# rows that are and are not 4- and 16-byte aligned, tile counts that are
+# not a multiple of a CTA's four
+AWKWARD = [
+    ("uint8", 45, 100, 32, 32, 3, 21),
+    ("uint8", 45, 96, 12, 16, 2, 37),
+    ("uint8", 37, 53, 11, 11, 3, 21),
+    ("int16", 40, 66, 15, 15, 2, 37),
+    ("int16", 40, 66, 16, 16, 3, 21),
+    ("int32", 49, 177, 15, 15, 3, 21),
+    ("int32", 49, 177, 11, 11, 2, 37),
+    ("int32", 29, 89, 8, 8, 1, 16),
+]
+
+
+def awkward_starts(torch, gen, n, hp, wp, th, tw):
+    """Starts on every edge, negative (counted from the end), past the
+    end, and random in [-Hp-2, Hp+2] x [-Wp-2, Wp+2]."""
+    fixed_r = [0, hp - th, -1, -hp, hp + 5, -th, hp - th + 1, 3]
+    fixed_c = [0, wp - tw, -wp, -1, wp + 7, wp - tw + 1, -tw, 5]
+    br = torch.randint(-hp - 2, hp + 3, (n,), generator=gen,
+                       dtype=torch.int32)
+    bc = torch.randint(-wp - 2, wp + 3, (n,), generator=gen,
+                       dtype=torch.int32)
+    k = min(n, len(fixed_r))
+    br[:k] = torch.tensor(fixed_r[:k], dtype=torch.int32)
+    bc[:k] = torch.tensor(fixed_c[:k], dtype=torch.int32)
+    return br, bc
+
+
+def designs_of(G, plane, br, bc, kw):
+    """name -> zero-argument launch of the main path's gather (through
+    gather_tiles) and of the other designs at the same geometry."""
+    th, tw = kw["th"], kw["tw"]
+    out = {"main": lambda: G.gather_tiles(plane, br, bc, **kw)}
+    for d in G.DESIGNS:
+        if d != G.MAIN_DESIGN:
+            out[d] = (lambda d=d: G.gather_tiles_design(d, plane, br, bc, th,
+                                                        tw))
+    return out
+
+
+def exact(torch, got, want, what):
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} != "
+                             f"{want.dtype}{tuple(want.shape)}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        raise AssertionError(f"{what}: max |err| {err}")
+    return err
+
+
 def kernel_phase(torch, MC, G, dev):
-    """Hold the CUDA gather against gather_tiles_ref at each call-site
-    shape; returns the per-site records."""
+    """Hold every gather design against gather_tiles_ref at each
+    call-site shape and the awkward shapes; returns the per-site records
+    (with the byte bound) and the launches to time at each site."""
     gen = torch.Generator().manual_seed(0)
-    recs = []
+    recs, timed = [], []
     for name, per_frame, plane, br, bc, kw in call_sites(torch, MC, G, gen,
                                                          dev):
         th, tw = kw["th"], kw["tw"]
-        got = G.gather_tiles(plane, br, bc, **kw)
         want = G.gather_tiles_ref(plane, br, bc, th, tw)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if err != 0 or got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"gather kernel != plain version at {name}:"
-                                 f" max |err| {err}")
+        impls = designs_of(G, plane, br, bc, kw)
+        err = max(exact(torch, fn(), want, f"{d} gather at {name}")
+                  for d, fn in impls.items())
         idx = flat_index(torch, plane, br, bc, th, tw)
         touched = torch.zeros(plane.numel(), dtype=torch.bool, device=dev)
         touched[idx.reshape(-1)] = True
         n = br.shape[0]
         nbytes = (int(touched.sum()) * plane.element_size() + 8 * n
                   + n * th * tw * plane.element_size())
-        rec = dict(site=name, launches_per_p_frame=per_frame,
-                   dtype=str(plane.dtype).replace("torch.", ""),
-                   plane=list(plane.shape), tiles=n, tile=[th, tw],
-                   max_abs_err=err, bytes=nbytes,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-        rec["ms"] = cuda_ms(lambda: G.gather_tiles(plane, br, bc, **kw))
-        rec["plain_ms"] = cuda_ms(
-            lambda: G.gather_tiles_ref(plane, br, bc, th, tw))
         flat = idx.reshape(n, th, tw)
-        rec["library_ms"] = cuda_ms(lambda: torch.take(plane, flat))
-        recs.append(rec)
-        print(f"  {name:24s} {rec['dtype']:5s} N={n:5d} {th}x{tw} "
-              f"err=0 kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f}"
-              f" ms  take {rec['library_ms']:.4f} ms  bound "
-              f"{rec['bound_ms']:.4f} ms", flush=True)
-    # off-contract starts (negative, past the end) map like the plain one
-    plane = torch.randint(0, 256, (40, 50), generator=gen,
-                          dtype=torch.int32).to(dev)
-    br = torch.tensor([-5, 0, 35, 100], dtype=torch.int32, device=dev)
-    bc = torch.tensor([-9, 45, 3, -1], dtype=torch.int32, device=dev)
-    got = G.gather_tiles_cuda(plane, br, bc, 8, 8)
-    if not torch.equal(got, G.gather_tiles_ref(plane, br, bc, 8, 8)):
-        raise AssertionError("gather kernel != plain version off-contract")
-    return recs
+        impls["take"] = lambda flat=flat, plane=plane: torch.take(plane,
+                                                                  flat)
+        impls["plain"] = (lambda plane=plane, br=br, bc=bc, th=th, tw=tw:
+                          G.gather_tiles_ref(plane, br, bc, th, tw))
+        recs.append(dict(site=name, launches_per_p_frame=per_frame,
+                         dtype=str(plane.dtype).replace("torch.", ""),
+                         plane=list(plane.shape), tiles=n, tile=[th, tw],
+                         max_abs_err=err, bytes=nbytes,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+        timed.append(impls)
+    for dt, hp, wp, th, tw, nbh, nbw in AWKWARD:
+        dtype = getattr(torch, dt)
+        plane = torch.randint(0, 256 if dt == "uint8" else 30000, (hp, wp),
+                              generator=gen, dtype=torch.int32).to(dtype)
+        br, bc = awkward_starts(torch, gen, nbh * nbw, hp, wp, th, tw)
+        plane, br, bc = plane.to(dev), br.to(dev), bc.to(dev)
+        want = G.gather_tiles_ref(plane, br, bc, th, tw)
+        kw = dict(nbh=nbh, nbw=nbw, stride=0, band_off=0, band_h=hp, th=th,
+                  tw=tw)
+        impls = designs_of(G, plane, br, bc, kw)
+        impls["cuda"] = lambda: G.gather_tiles_cuda(plane, br, bc, th, tw)
+        for d, fn in impls.items():
+            exact(torch, fn(), want, f"{d} gather, {dt} {hp}x{wp} "
+                  f"{th}x{tw} x{nbh * nbw}")
+    return recs, timed
+
+
+def timing_phase(recs, timed):
+    """Time each design, torch.take and the plain version at each call
+    site: event ms and host us at every site first, then device us at
+    every site (a profiler session may slow every later launch).  Two
+    rounds in turns, forward then reversed; each figure is the mean of
+    both.  One profiler session whose figure is dropped comes before the
+    device rounds: the first session of a process may report no kernel."""
+    runs = []
+    for impls in timed:
+        order = list(impls)
+        r = {d: [] for d in order}
+        for rnd in (order, order[::-1]):
+            for d in rnd:
+                r[d].append((cuda_ms(impls[d]), host_us(impls[d])))
+        runs.append(r)
+    device_us(timed[0]["main"])
+    for impls, r in zip(timed, runs):
+        order = list(impls)
+        for rnd in (order, order[::-1]):
+            for d in rnd:
+                r[d].append(device_us(impls[d]))
+    for rec, impls, r in zip(recs, timed, runs):
+        for d in impls:
+            (ev0, hs0), (ev1, hs1), dv0, dv1 = r[d]
+            rec[d] = dict(ms=(ev0 + ev1) / 2, host_us=(hs0 + hs1) / 2,
+                          device_us=None if None in (dv0, dv1)
+                          else (dv0 + dv1) / 2)
+        rec["plain_ms"] = rec["plain"]["ms"]
+        print(f"  {rec['site']:24s} {rec['dtype']:5s} N={rec['tiles']:5d} "
+              f"{rec['tile'][0]}x{rec['tile'][1]} bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us", flush=True)
+        for d in impls:
+            x = rec[d]
+            dv = ("not measured" if x["device_us"] is None
+                  else f"{x['device_us']:8.2f} us")
+            print(f"      {d:6s} device {dv}  event {x['ms']:.4f} ms  "
+                  f"host {x['host_us']:6.2f} us", flush=True)
 
 
 def main_path(torch, G, svt, cfg_kw):
@@ -246,7 +378,7 @@ def main() -> int:
 
     t = time.time()
     with ThreadPoolExecutor(2) as ex:      # nvcc and g++ side by side
-        jobs = [ex.submit(G.kernel_library), ex.submit(backend._lib)]
+        jobs = [ex.submit(G.kernel_module), ex.submit(backend._lib)]
         for j in jobs:
             j.result()
     build_s = time.time() - t
@@ -254,8 +386,9 @@ def main() -> int:
 
     t = time.time()
     dev = torch.device("cuda")
-    sites = kernel_phase(torch, MC, G, dev)
-    phase("kernel vs plain (exact) at 720p call-site shapes", t)
+    sites, timed = kernel_phase(torch, MC, G, dev)
+    phase("kernel designs vs plain (exact) at 720p call-site and "
+          "awkward shapes", t)
 
     t = time.time()
     cfg_kw = dict(width=W720, height=H720, qp=40, intra_period=-1,
@@ -267,8 +400,9 @@ def main() -> int:
         raise AssertionError("expected 8 non-empty packets")
     if not pkts[0].is_keyframe or any(p.is_keyframe for p in pkts[1:]):
         raise AssertionError("expected one keyframe then P frames")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the gather kernel")
+    if launches != 6 * (N_MAIN - 1):
+        raise AssertionError(f"the main path launched the gather kernel "
+                             f"{launches} times, not 6 per P frame")
     psnr_y = [p.psnr[0] for p in pkts]
     if not all(25.0 < v < 60.0 for v in psnr_y):
         raise AssertionError(f"PSNR-Y out of range for qp 40: {psnr_y}")
@@ -286,8 +420,20 @@ def main() -> int:
     print(f"  320x192 IPPP card == CPU, packet bytes {sizes}", flush=True)
     phase("card vs CPU packets, 320x192 1 key + 2 P", t)
 
+    t = time.time()
+    timing_phase(sites, timed)
+    phase("gather timings at the 720p call sites", t)
+
     main_sites = [s for s in sites if s["launches_per_p_frame"]]
-    tot = lambda k: sum(s[k] * s["launches_per_p_frame"] for s in main_sites)
+
+    def tot(get):
+        vals = [get(s) for s in main_sites]
+        if None in vals:
+            return None
+        return sum(v * s["launches_per_p_frame"]
+                   for v, s in zip(vals, main_sites))
+
+    dev_us = tot(lambda s: s["main"]["device_us"])
     kernels = {"kernels": [{
         "name": "gather_tiles",
         "route": "cuda",
@@ -295,9 +441,20 @@ def main() -> int:
         "replaces": "svt_av1_tpu/ops/gather.py:151",
         "launches": launches,
         "max_abs_err": max(s["max_abs_err"] for s in sites),
-        "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-        "bound_ms": tot("bound_ms"), "bound_by": "bytes",
-        "library_ms": tot("library_ms")}]}
+        "ms": tot(lambda s: s["main"]["ms"]),
+        "device_ms": None if dev_us is None else dev_us / 1e3,
+        "host_us": tot(lambda s: s["main"]["host_us"]),
+        "plain_ms": tot(lambda s: s["plain_ms"]),
+        "bound_ms": tot(lambda s: s["bound_ms"]), "bound_by": "bytes",
+        "library_ms": tot(lambda s: s["take"]["ms"])}]}
+    for d in ["main", *(d for d in G.DESIGNS if d != G.MAIN_DESIGN),
+              "take", "plain"]:
+        dv = tot(lambda s: s[d]["device_us"])
+        print(f"  per P frame, {d:6s}: event "
+              f"{tot(lambda s: s[d]['ms']):.4f} ms, device "
+              f"{'not measured' if dv is None else f'{dv:.2f} us'}, host "
+              f"{tot(lambda s: s[d]['host_us']):.2f} us; bound "
+              f"{tot(lambda s: s['bound_ms']) * 1e3:.2f} us", flush=True)
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)

@@ -73,10 +73,11 @@ def warp_by_centers(ref_pad, centers, tile: int, pad: int):
     [tile, tile] tile per 32x32 grid cell; the CUDA tile gather)."""
     th, tw = centers.shape[:2]
     dev = ref_pad.device
-    base_r = (torch.arange(th, device=dev)[:, None] * tile + pad
-              + centers[..., 0]).reshape(-1)
-    base_c = (torch.arange(tw, device=dev)[None, :] * tile + pad
-              + centers[..., 1]).reshape(-1)
+    cen = centers.to(torch.int32)
+    base_r = (torch.arange(th, dtype=torch.int32, device=dev)[:, None]
+              * tile + pad + cen[..., 0]).reshape(-1)
+    base_c = (torch.arange(tw, dtype=torch.int32, device=dev)[None, :]
+              * tile + pad + cen[..., 1]).reshape(-1)
     tiles = G.gather_tiles(ref_pad, base_r, base_c, nbh=th, nbw=tw,
                            stride=tile, band_off=0,
                            band_h=2 * pad + tile, th=tile, tw=tile)

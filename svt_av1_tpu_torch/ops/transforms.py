@@ -8,11 +8,10 @@ tables (tables/data/txfm_stages.json) over ``[..., N]`` tensors:
     (the spec's per-stage clamps bound every product below 2^31);
   * ``fwd_txfm2d_batch_exact`` — the exact integer forward (intra path);
   * ``fwd_txfm2d_batch`` — the f32 matrix forward of the inter path.
-    Its two products are written as explicit multiply-and-add sweeps in
-    a fixed order (not ``torch.matmul``), so the CPU and the GPU round
-    every partial sum identically and the levels agree bit for bit
-    across devices.  Against the reference's XLA einsum the order
-    differs, which can flip a ``round`` at .5 (logged in ROADMAP.md).
+    Its two products are written as elementwise multiply-and-add sweeps
+    in XLA:CPU's summation order (not ``torch.matmul``), so the CPU and
+    the GPU round every partial sum identically and both equal the
+    reference's einsum bit for bit.
 
 All three keep the reference's layout: ``[..., H, W]`` blocks in, the
 same shape out, on the input's device.
@@ -388,23 +387,59 @@ def _fwd_matrices_on(tx_size: int, tx_type: int, device: torch.device):
             torch.as_tensor(mr, device=device))
 
 
+# Accumulator lanes of XLA:CPU's f32 dot at contraction length K (square
+# DCT sizes of the inter path; see fwd_txfm2d_batch)
+XLA_DOT_LANES = {4: 4, 8: 4, 16: 4, 32: 2, 64: 1}
+
+
+def _xla_dot_nt(a, m):
+    """XLA:CPU's f32 ``a @ m^T`` over the last axis of ``a`` [B, R, K]
+    with ``m`` [N, K]: returns [B, R, N] float32.
+
+    Term k goes to lane k % L (L = XLA_DOT_LANES[K]); each lane is a
+    chain of fused multiply-adds in ascending k, and the lanes are
+    combined pairwise, ((l0 + l1) + (l2 + l3)).  The FMA is emulated
+    elementwise: the product of two float32 values is exact in float64,
+    and the in-place add into the float32 accumulator computes the sum in
+    float64 and stores it rounded to float32.  That emulation rounds
+    twice (to float64, then to float32) where the FMA rounds once; it
+    matched every output probed."""
+    b, r, k = a.shape
+    lanes = XLA_DOT_LANES[k]
+    steps = k // lanes
+    # [steps, B, L, R, 1] x [steps, L, 1, N] -> [B, L, R, N] per step
+    a64 = a.to(torch.float64).reshape(b, r, steps, lanes).permute(
+        2, 0, 3, 1)[..., None]
+    m64 = m.to(torch.float64).reshape(-1, steps, lanes).permute(
+        1, 2, 0)[:, :, None, :]
+    acc = torch.zeros((b, lanes, r, m.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    for s in range(steps):
+        acc.add_(a64[s] * m64[s])
+    parts = list(acc.unbind(1))
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
 def fwd_txfm2d_batch(resid, tx_size: int, tx_type: int, bd: int = 8):
     """Forward transform, batched [..., H, W] -> [..., H, W] int32 coeffs.
 
-    coeffs = round(M_col @ resid @ M_row^T) in f32, summed over the inner
-    index in ascending order with one rounded multiply and one rounded
-    add per term (no matmul, no FMA), so every device gives the same
-    bits.  Non-normative: the levels it feeds are self-consistent with
-    the exact inverse, so recon parity never depends on it."""
+    coeffs = round(M_col @ resid @ M_row^T) in f32, computed as XLA:CPU
+    computes the reference's einsum (``_xla_dot_nt``): the column pass
+    first (contract over H), then the row pass (contract over W), each
+    one XLA dot.  The lane orders in XLA_DOT_LANES were found on an
+    x86-64 CPU with AVX-512 (jax 0.9.0), probing single dots of every
+    square DCT size with exact +-2^40 / 1 inputs to reveal the sum tree,
+    then checked on random operands at several batch sizes (0
+    mismatches).  The sweeps are elementwise float64 products and
+    float64 adds, so every device gives the same bits.  Non-normative:
+    the levels it feeds are self-consistent with the exact inverse."""
     mc, mr = _fwd_matrices_on(tx_size, tx_type, resid.device)
-    x = resid.to(torch.float32)
-    h, w = x.shape[-2], x.shape[-1]
-    # column pass: t[..., i, k] = sum_j mc[i, j] * x[..., j, k]
-    t = mc[:, 0, None] * x[..., 0:1, :]
-    for j in range(1, h):
-        t = t + mc[:, j, None] * x[..., j:j + 1, :]
-    # row pass: y[..., i, l] = sum_k t[..., i, k] * mr[l, k]
-    y = t[..., 0:1] * mr[:, 0]
-    for k in range(1, w):
-        y = y + t[..., k:k + 1] * mr[:, k]
-    return torch.round(y).to(torch.int32)
+    h, w = resid.shape[-2], resid.shape[-1]
+    x = resid.reshape(-1, h, w).to(torch.float32)
+    # column pass: t[b, i, k] = sum_j mc[i, j] * x[b, j, k]
+    t = _xla_dot_nt(x.transpose(1, 2), mc).transpose(1, 2)
+    # row pass: y[b, i, l] = sum_k t[b, i, k] * mr[l, k]
+    y = _xla_dot_nt(t, mr)
+    return torch.round(y).to(torch.int32).reshape(resid.shape)

@@ -1,7 +1,8 @@
 """Build native sources of the port into ``build/svt_av1_tpu_torch/``.
 
-Every native piece of the port (the C++ entropy coder, the CUDA kernels)
-is a plain-C shared library loaded with ``ctypes``.  Libraries are built
+Every native piece of the port is a shared library: the C++ entropy
+coder a plain-C one loaded with ``ctypes``, the CUDA tile gather a small
+CPython extension module (no PyTorch headers).  Libraries are built
 at first use, from the sources in the checkout, into the repository's
 ``build/`` directory (never into the package), and are keyed on a hash
 of the source and the command, so an edited source rebuilds and an

@@ -68,6 +68,70 @@ def test_kernel_dtypes_and_off_contract_starts(cuda, dtype):
     assert torch.equal(got.cpu(), TG.gather_tiles_ref(plane, br, bc, 8, 8))
 
 
+# (dtype, Hp, Wp, th, tw, nbh, nbw), as chip_smoke.AWKWARD: odd and
+# word-sized tile widths, rows that are and are not 4- and 16-byte
+# aligned, tile counts that are not a multiple of a CTA's four
+AWKWARD = [
+    (torch.uint8, 45, 100, 32, 32, 3, 21),
+    (torch.uint8, 45, 96, 12, 16, 2, 37),
+    (torch.uint8, 37, 53, 11, 11, 3, 21),
+    (torch.int16, 40, 66, 15, 15, 2, 37),
+    (torch.int16, 40, 66, 16, 16, 3, 21),
+    (torch.int32, 49, 177, 15, 15, 3, 21),
+    (torch.int32, 49, 177, 11, 11, 2, 37),
+    (torch.int32, 29, 89, 8, 8, 1, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hp,wp,th,tw,nbh,nbw", AWKWARD)
+def test_designs_equal_plain_at_awkward_shapes(cuda, dtype, hp, wp, th, tw,
+                                               nbh, nbw):
+    """Every design, on starts at every edge, negative, past the end and
+    random."""
+    rng = np.random.default_rng(hp * wp + th)
+    plane = T_(rng.integers(0, 250, (hp, wp)).astype(np.int32)).to(dtype)
+    n = nbh * nbw
+    br = rng.integers(-hp - 2, hp + 3, n).astype(np.int32)
+    bc = rng.integers(-wp - 2, wp + 3, n).astype(np.int32)
+    k = min(n, 8)
+    br[:k] = [0, hp - th, -1, -hp, hp + 5, -th, hp - th + 1, 3][:k]
+    bc[:k] = [0, wp - tw, -wp, -1, wp + 7, wp - tw + 1, -tw, 5][:k]
+    br, bc = T_(br), T_(bc)
+    want = TG.gather_tiles_ref(plane, br, bc, th, tw)
+    p, r, c = plane.to(cuda), br.to(cuda), bc.to(cuda)
+    outs = [TG.gather_tiles(p, r, c, nbh=nbh, nbw=nbw, stride=0, band_off=0,
+                            band_h=hp, th=th, tw=tw),
+            TG.gather_tiles_cuda(p, r, c, th, tw)]
+    outs += [TG.gather_tiles_design(d, p, r, c, th, tw) for d in TG.DESIGNS]
+    for got in outs:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_stream_and_device_getters_equal_public_api(cuda):
+    """The wrapper's device and stream getters answer as
+    torch.cuda.current_device() and current_stream().cuda_stream do, and
+    a gather issued on a side stream runs there and is right."""
+    dev = torch.cuda.current_device()
+    assert TG._current_device() == dev
+    assert TG._raw_stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+    plane = (torch.arange(30 * 40, dtype=torch.int32).reshape(30, 40)
+             % 97).to(torch.int16)
+    br = torch.tensor([0, 7, 22, -3], dtype=torch.int32)
+    bc = torch.tensor([5, 31, -8, 12], dtype=torch.int32)
+    p, r, c = plane.to(cuda), br.to(cuda), bc.to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert TG._raw_stream(dev) == side.cuda_stream
+        assert TG._raw_stream(dev) != torch.cuda.default_stream(
+            dev).cuda_stream
+        got = TG.gather_tiles_cuda(p, r, c, 8, 9)
+    side.synchronize()
+    assert torch.equal(got.cpu(), TG.gather_tiles_ref(plane, br, bc, 8, 9))
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_dtype(cuda):
     plane = torch.zeros((16, 16), dtype=torch.float32, device=cuda)

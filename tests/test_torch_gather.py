@@ -126,3 +126,50 @@ def test_cuda_entry_refuses_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         TG.gather_tiles_cuda(plane, idx, idx, 4, 4)
 
+
+
+def test_grid_tile_args_build_int32_starts():
+    """The CUDA wrapper converts nothing: grid_tile_args hands it
+    contiguous int32 starts, whatever integer type the vectors have."""
+    plane = torch.zeros((60, 80), dtype=torch.int32)
+    mv = torch.ones((3, 4), dtype=torch.int64)
+    br, bc, kw = TG.grid_tile_args(plane, mv, mv.expand(3, 4), 8, 17, 16)
+    for s in (br, bc):
+        assert s.dtype == torch.int32 and s.is_contiguous()
+        assert s.shape == (kw["nbh"] * kw["nbw"],)
+
+
+def test_warp_by_centers_builds_int32_starts(monkeypatch):
+    from svt_av1_tpu_torch.ops import me as TM
+    seen = []
+    real = TG.gather_tiles
+
+    def spy(plane, base_r, base_c, **kw):
+        seen.append((base_r.dtype, base_c.dtype, base_r.is_contiguous(),
+                     base_c.is_contiguous()))
+        return real(plane, base_r, base_c, **kw)
+
+    monkeypatch.setattr(TG, "gather_tiles", spy)
+    ref_pad = torch.zeros((2 * 32 + 32, 3 * 32 + 32), dtype=torch.uint8)
+    centers = torch.zeros((2, 3, 2), dtype=torch.int32)
+    out = TM.warp_by_centers(ref_pad, centers, 32, 16)
+    assert out.shape == (64, 96)
+    assert seen == [(torch.int32, torch.int32, True, True)]
+
+
+@pytest.mark.parametrize("bad", ["int64", "strided"])
+def test_cuda_wrapper_rejects_starts_it_would_convert(bad):
+    """The kernel entry raises on int64 or non-contiguous starts (checked
+    before the device, so this runs without a card)."""
+    plane = torch.zeros((16, 16), dtype=torch.int32)
+    idx = torch.zeros(4, dtype=torch.int32)
+    if bad == "int64":
+        idx = idx.long()
+        err = TypeError
+    else:
+        idx = torch.zeros(8, dtype=torch.int32)[::2]
+        err = ValueError
+    with pytest.raises(err):
+        TG.gather_tiles_cuda(plane, idx, idx, 4, 4)
+    with pytest.raises(err):
+        TG.check_cuda_args(plane, idx, idx)

@@ -2,9 +2,8 @@
 CDEF of svt_av1_tpu_torch against svt_av1_tpu on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages.
-Every integer output must be bit-exact; the one exception is the f32
-forward transform of the inter path, whose summation order differs from
-XLA's (bound stated in its test)."""
+Every integer output must be bit-exact, the f32 forward transform of
+the inter path included (it sums in XLA:CPU's order)."""
 
 import numpy as np
 import pytest
@@ -62,20 +61,26 @@ def test_inv_bitexact(tx, ty):
 
 
 @pytest.mark.parametrize("tx,ty", INTER)
-def test_fwd_f32_within_one_of_xla(tx, ty):
-    """The f32 forward sums in a fixed order (mul, then add, ascending
-    inner index) so card and CPU agree bit for bit; XLA's einsum sums in
-    its own order, so a coefficient sitting on a .5 boundary may round
-    the other way.  Bound: |diff| <= 1 on at most 0.1% of coefficients,
-    and exact at 4x4 / 8x8 where the short sums leave no such ties."""
+def test_fwd_f32_bitexact_vs_xla(tx, ty):
+    """The f32 forward sums in XLA:CPU's order (lanes of fused
+    multiply-adds, TT.XLA_DOT_LANES), so it equals the reference's einsum
+    bit for bit, and card and CPU agree because every step is
+    elementwise."""
     r = _resid(tx, n=128, seed=7)
     want = np.asarray(JT.fwd_txfm2d_batch(jnp.asarray(r), tx, ty))
     got = TT.fwd_txfm2d_batch(T_(r), tx, ty).numpy()
-    diff = np.abs(want.astype(np.int64) - got)
-    assert diff.max() <= 1
-    assert np.count_nonzero(diff) <= max(1, diff.size // 1000)
-    if JT.TX_W[tx] <= 8:
-        assert diff.max() == 0
+    assert np.array_equal(want, got)
+
+
+@pytest.mark.parametrize("tx", [JT.TX_16X16, JT.TX_32X32, JT.TX_64X64])
+@pytest.mark.parametrize("n", [3, 41, 240])
+def test_fwd_f32_bitexact_vs_xla_batch_sizes(tx, n):
+    """The order holds at every batch size (the dot's M = n * width),
+    not only at the one above: 240 is the 720p count of 64x64 blocks."""
+    r = _resid(tx, n=n, seed=n)
+    want = np.asarray(JT.fwd_txfm2d_batch(jnp.asarray(r), tx, JT.DCT_DCT))
+    got = TT.fwd_txfm2d_batch(T_(r), tx, JT.DCT_DCT).numpy()
+    assert np.array_equal(want, got)
 
 
 @pytest.mark.parametrize("tx", [JT.TX_4X4, JT.TX_8X8, JT.TX_16X16,

@@ -12,15 +12,25 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 entropy coder into build/svt_av1_tpu_torch/, together;
   3. kernel   — both designs of the tile-gather kernel (the main
                 path's and the first port's v1, a yardstick) against its
-                plain PyTorch version at every 720p call-site shape and
-                at awkward shapes (odd widths, edge and off-contract
-                starts, three dtypes), exact equality (tolerance 0);
+                plain PyTorch version at every call-site shape of a
+                720p P frame and of a 1080p B frame, and at awkward
+                shapes (odd widths, edge and off-contract starts, three
+                dtypes), exact equality (tolerance 0);
   4. main     — the 720p low-delay-P encode (1 keyframe + 7 P frames,
                 qp 40, preset 8) through Encoder.send_picture/get_packet;
                 the gather must launch 6 times per P frame;
-  5. parity   — a 320x192 clip (1 keyframe + 2 P) encoded on the card
-                and on the CPU must give byte-identical packets;
-  6. timing   — at each call site, for both designs, one torch.take
+  5. main-B   — the 1080p hierarchical-B encode (qp 40, preset 8,
+                hierarchical_levels=3, compound_mode=1, deblock + CDEF):
+                a keyframe and one mini-GOP (base P + 7 B frames) of a
+                moving clip through send_picture/flush/get_packet, 9
+                coded and 8 show-existing TUs; the gather must launch 5
+                times for the base P frame and 13 per B frame, and the
+                B frames must hold compound cells;
+  6. parity   — a 320x192 IPPP clip (1 keyframe + 2 P) and a 192x128
+                hier-B clip (levels 2, 6 frames: a truncated span at
+                flush) encoded on the card and on the CPU must give
+                byte-identical TUs;
+  7. timing   — at each call site, for both designs, one torch.take
                 call and the plain version: event ms (CUDA events around
                 20 back-to-back calls) and host us per call (perf_counter
                 around 200 calls issued without a synchronise) at every
@@ -30,11 +40,13 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 later launch.
 
 The second-to-last line is the kernels JSON, the last line
-{"ok": true, "device": {...}}.  For gather_tiles its ms, device_ms,
-host_us, plain_ms, bound_ms and library_ms are sums over the six
-launches of one 720p P frame.  --out DIR also writes the per-shape and
-per-frame numbers to DIR/chip_smoke.json.  Imports neither JAX nor the
-JAX package.
+{"ok": true, "device": {...}}.  For gather_tiles, launches counts the
+main-path launches of phases 4 and 5; ms, device_ms, host_us, plain_ms,
+bound_ms and library_ms are sums over the six launches of one 720p P
+frame, and "per_1080p_b_frame" holds the same sums over the 13 launches
+of one 1080p B frame.  --out DIR also writes the per-shape and per-frame
+numbers to DIR/chip_smoke.json.  Imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -50,6 +62,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 W720, H720, N_MAIN = 1280, 720, 8
+W1080, H1080, N_HIERB = 1920, 1080, 9
+# gather launches per frame of each call site on the main paths (the
+# RD presets' dense subpel refine is not on them)
+P720 = {"warp_by_centers": 1, "globalmv_copy": 1, "cell_refine": 1,
+        "mc_patch_luma": 1, "mc_patch_chroma": 2}
+# a B frame: ME warp and cell refine per reference, and per plane the
+# ref0 patch, the ref1 single-ref patch and the ref1 compound patch;
+# the mini-GOP's base P frame has no global-motion copy
+B1080 = {"warp_by_centers": 2, "cell_refine": 2, "mc_patch_luma": 3,
+         "mc_patch_chroma": 6}
+BASE_P_LAUNCHES = 5
 
 
 def phase(name: str, t0: float) -> None:
@@ -102,11 +125,12 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
-def call_sites(torch, MC, G, gen, dev):
-    """(name, per-P-frame launches on the main path, plane, base_r,
-    base_c, gather_tiles kwargs) at the 720p shapes of every call site.
+def call_sites(torch, MC, G, gen, dev, w, h, per_frame, dense=False):
+    """(name, launches per frame on the main path, plane, base_r, base_c,
+    gather_tiles kwargs) at the shapes every call site of per_frame has
+    in a w x h frame (and the RD presets' dense refine when dense).
     Motion is drawn uniformly within each site's reach."""
-    ph, pw = -(-H720 // 64) * 64, W720          # 64-padded geometry
+    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64    # 64-padded geometry
     ry = torch.randint(0, 256, (ph, pw), generator=gen,
                        dtype=torch.uint8).to(dev)
     ru = torch.randint(0, 256, (ph // 2, pw // 2), generator=gen,
@@ -127,29 +151,31 @@ def call_sites(torch, MC, G, gen, dev):
     ar = lambda k: torch.arange(k, dtype=torch.int32, device=dev)
     br = (ar(th)[:, None] * 32 + search + cen[..., 0]).reshape(-1)
     bc = (ar(tw)[None, :] * 32 + search + cen[..., 1]).reshape(-1)
-    sites.append(("warp_by_centers", 1, ref_pad, br, bc,
-                  dict(nbh=th, nbw=tw, stride=32, band_off=0,
-                       band_h=2 * search + 32, th=32, tw=32)))
+    sites.append(("warp_by_centers", per_frame["warp_by_centers"], ref_pad,
+                  br, bc, dict(nbh=th, nbw=tw, stride=32, band_off=0,
+                               band_h=2 * search + 32, th=32, tw=32)))
     nb8 = (ph // 8, pw // 8)
     g = mv((2,), 15)
-    grid = [  # name, launches/P frame, plane, mv, bs, pad, reach, halo, off
-        ("globalmv_copy", 1, py_pad,
+    grid = [  # name, plane, mv, bs, pad, reach, halo, off
+        ("globalmv_copy", py_pad,
          (g[0].expand(nb8), g[1].expand(nb8)), 8, pad, pad - 1, 0, 0),
-        ("cell_refine", 1, py_pad, (mv(nb8, 16), mv(nb8, 16)),
+        ("cell_refine", py_pad, (mv(nb8, 16), mv(nb8, 16)),
          8, pad, pad - 1, 8, -4),
-        ("mc_patch_luma", 1, py_pad, (mv(nb8, 17), mv(nb8, 17)),
+        ("mc_patch_luma", py_pad, (mv(nb8, 17), mv(nb8, 17)),
          8, pad, pad, 7, -3),
-        ("mc_patch_chroma", 2, pu_pad, (mv(nb8, 9), mv(nb8, 9)),
+        ("mc_patch_chroma", pu_pad, (mv(nb8, 9), mv(nb8, 9)),
          4, cpad, cpad, 7, -3),
     ]
-    for bs in (8, 16, 32):     # RD presets only: not on the main path
-        nb = (ph // bs, pw // bs)
-        grid.append((f"subpel_refine_dense_{bs}", 0, py_pad,
-                     (mv(nb, 16), mv(nb, 16)), bs, pad, pad - 1, 8, -4))
-    for name, per_frame, plane, (mr, mc), bs, pd, reach, halo, off in grid:
+    grid = [x for x in grid if x[0] in per_frame]
+    if dense:                  # RD presets only: not on the main paths
+        for bs in (8, 16, 32):
+            nb = (ph // bs, pw // bs)
+            grid.append((f"subpel_refine_dense_{bs}", py_pad,
+                         (mv(nb, 16), mv(nb, 16)), bs, pad, pad - 1, 8, -4))
+    for name, plane, (mr, mc), bs, pd, reach, halo, off in grid:
         br, bc, kw = G.grid_tile_args(plane, mr, mc, bs, pd, reach, halo,
                                       off)
-        sites.append((name, per_frame, plane, br, bc, kw))
+        sites.append((name, per_frame.get(name, 0), plane, br, bc, kw))
     return sites
 
 
@@ -219,12 +245,16 @@ def exact(torch, got, want, what):
 
 def kernel_phase(torch, MC, G, dev):
     """Hold every gather design against gather_tiles_ref at each
-    call-site shape and the awkward shapes; returns the per-site records
-    (with the byte bound) and the launches to time at each site."""
+    call-site shape of a 720p P frame and of a 1080p B frame, and at the
+    awkward shapes; returns the per-site records (with the byte bound)
+    and the launches to time at each site."""
     gen = torch.Generator().manual_seed(0)
     recs, timed = [], []
-    for name, per_frame, plane, br, bc, kw in call_sites(torch, MC, G, gen,
-                                                         dev):
+    sites = [("720p P", s) for s in call_sites(torch, MC, G, gen, dev, W720,
+                                               H720, P720, dense=True)]
+    sites += [("1080p B", s) for s in call_sites(torch, MC, G, gen, dev,
+                                                 W1080, H1080, B1080)]
+    for frame, (name, per_frame, plane, br, bc, kw) in sites:
         th, tw = kw["th"], kw["tw"]
         want = G.gather_tiles_ref(plane, br, bc, th, tw)
         impls = designs_of(G, plane, br, bc, kw)
@@ -241,7 +271,8 @@ def kernel_phase(torch, MC, G, dev):
                                                                   flat)
         impls["plain"] = (lambda plane=plane, br=br, bc=bc, th=th, tw=tw:
                           G.gather_tiles_ref(plane, br, bc, th, tw))
-        recs.append(dict(site=name, launches_per_p_frame=per_frame,
+        recs.append(dict(frame=frame, site=name,
+                         launches_per_frame=per_frame,
                          dtype=str(plane.dtype).replace("torch.", ""),
                          plane=list(plane.shape), tiles=n, tile=[th, tw],
                          max_abs_err=err, bytes=nbytes,
@@ -292,7 +323,8 @@ def timing_phase(recs, timed):
                           device_us=None if None in (dv0, dv1)
                           else (dv0 + dv1) / 2)
         rec["plain_ms"] = rec["plain"]["ms"]
-        print(f"  {rec['site']:24s} {rec['dtype']:5s} N={rec['tiles']:5d} "
+        print(f"  {rec['frame']} {rec['site']:24s} {rec['dtype']:5s} "
+              f"N={rec['tiles']:5d} "
               f"{rec['tile'][0]}x{rec['tile'][1]} bound "
               f"{rec['bound_ms'] * 1e3:.2f} us", flush=True)
         for d in impls:
@@ -326,27 +358,103 @@ def main_path(torch, G, svt, cfg_kw):
     return pkts, secs, launches
 
 
+def moving_clip(w: int, h: int, n: int):
+    """Moving synthetic content: a textured base that drifts, plus a
+    moving local patch, so ME has real work and the B frames' two
+    references differ."""
+    import numpy as np
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    base = synthetic_frame(w, h, seed=7)
+    frames = []
+    for i in range(n):
+        f = synthetic_frame(w, h, seed=7)
+        f.y[:] = np.roll(base.y, (2 * i, 3 * i), (0, 1))
+        f.u[:] = np.roll(base.u, (i, i), (0, 1))
+        f.v[:] = np.roll(base.v, (i, -i), (0, 1))
+        yy, xx = (17 * i) % max(1, h - 64), (29 * i) % max(1, w - 64)
+        f.y[yy: yy + 48, xx: xx + 48] = f.y[yy: yy + 48, xx: xx + 48] // 2 + 64
+        frames.append(f)
+    return frames
+
+
+def hierb_path(torch, G, svt, cfg_kw):
+    """1080p hier-B through the user entry points: a keyframe, then one
+    mini-GOP sent frame by frame and flushed.  Returns (TUs in decode
+    order, keyframe seconds, {display index: seconds} of each coded
+    frame, gather launches during the run).  Each coded frame's time
+    (device step + host entropy) is read around Encoder._dispatch_code,
+    with the card synchronised."""
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    frames = moving_clip(W1080, H1080, N_HIERB)
+    enc = Encoder(svt.EncoderConfig(**cfg_kw), device="cuda")
+    code = enc._dispatch_code
+    secs = {}
+
+    def timed_code(step, frame, qindex, pins):
+        torch.cuda.synchronize()
+        t = time.time()
+        code(step, frame, qindex, pins)
+        torch.cuda.synchronize()
+        secs[step.disp] = time.time() - t
+
+    enc._dispatch_code = timed_code
+    G.gather_tiles.launches = 0
+    t = time.time()
+    enc.send_picture(frames[0])
+    torch.cuda.synchronize()
+    key_s = time.time() - t
+    for f in frames[1:]:
+        enc.send_picture(f)
+    enc.send_picture(None)
+    launches = G.gather_tiles.launches
+    tus = []
+    while True:
+        pkt = enc.get_packet()
+        if pkt is None:
+            break
+        tus.append(pkt)
+    return tus, key_s, secs, launches
+
+
 def parity_phase(svt):
-    """Small clip on the card and on the CPU: packets must be identical."""
+    """Small clips on the card and on the CPU: IPPP at 320x192 and hier-B
+    at 192x128 (levels 2, 6 frames, so the flush codes a truncated
+    span); TUs must be identical.  Returns the TU byte sizes."""
     from svt_av1_tpu_torch.io.yuv import synthetic_frame
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
-    kw = dict(width=320, height=192, qp=40, intra_period=-1,
-              pred_structure=0, scene_change_detection=False,
-              recon_output=True)
-    frames = [synthetic_frame(320, 192, seed=10 + i) for i in range(3)]
-    out = {}
-    for device in ("cuda", "cpu"):
-        out[device] = list(Encoder(svt.EncoderConfig(**kw),
-                                   device=device).encode_all(frames))
-    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
-        if a.payload != b.payload:
-            raise AssertionError(f"card and CPU packets differ at frame {i}")
-        for p in ("y", "u", "v"):
-            if (getattr(a.recon, p) != getattr(b.recon, p)).any():
-                raise AssertionError(f"card/CPU recon differ: frame {i} {p}")
-    if len(out["cuda"]) != 3:
-        raise AssertionError("expected 3 packets")
-    return [len(p.payload) for p in out["cuda"]]
+    cases = [
+        ("320x192 IPPP", dict(width=320, height=192, qp=40, intra_period=-1,
+                              pred_structure=0,
+                              scene_change_detection=False,
+                              recon_output=True), 10, 3, 3),
+        ("192x128 hier-B", dict(width=192, height=128, qp=40,
+                                intra_period=-1, pred_structure=2,
+                                hierarchical_levels=2, compound_mode=1,
+                                scene_change_detection=False,
+                                recon_output=True), 20, 6, 11),
+    ]
+    sizes = {}
+    for name, kw, seed, n, n_tus in cases:
+        frames = [synthetic_frame(kw["width"], kw["height"], seed=seed + i)
+                  for i in range(n)]
+        out = {}
+        for device in ("cuda", "cpu"):
+            out[device] = list(Encoder(svt.EncoderConfig(**kw),
+                                       device=device).encode_all(frames))
+        if len(out["cuda"]) != n_tus or len(out["cpu"]) != n_tus:
+            raise AssertionError(f"{name}: expected {n_tus} TUs")
+        for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+            if a.payload != b.payload:
+                raise AssertionError(f"{name}: card and CPU TUs differ at "
+                                     f"{i}")
+            if (a.recon is None) != (b.recon is None):
+                raise AssertionError(f"{name}: recon presence differs at {i}")
+            for p in ("y", "u", "v") if a.recon is not None else ():
+                if (getattr(a.recon, p) != getattr(b.recon, p)).any():
+                    raise AssertionError(f"{name}: card/CPU recon differ: "
+                                         f"TU {i} {p}")
+        sizes[name] = [len(p.payload) for p in out["cuda"]]
+    return sizes
 
 
 def main() -> int:
@@ -387,8 +495,8 @@ def main() -> int:
     t = time.time()
     dev = torch.device("cuda")
     sites, timed = kernel_phase(torch, MC, G, dev)
-    phase("kernel designs vs plain (exact) at 720p call-site and "
-          "awkward shapes", t)
+    phase("kernel designs vs plain (exact) at 720p P and 1080p B "
+          "call-site and awkward shapes", t)
 
     t = time.time()
     cfg_kw = dict(width=W720, height=H720, qp=40, intra_period=-1,
@@ -416,45 +524,98 @@ def main() -> int:
     phase("main path 720p low-delay P (1 key + 7 P)", t)
 
     t = time.time()
+    hierb_kw = dict(width=W1080, height=H1080, qp=40, intra_period=-1,
+                    pred_structure=2, hierarchical_levels=3,
+                    compound_mode=1, enable_deblocking=True,
+                    enable_cdef=True, recon_output=False,
+                    scene_change_detection=False, enc_mode=8,
+                    stat_report=True)
+    tus, key_s, bsecs, b_launches = hierb_path(torch, G, svt, hierb_kw)
+    coded = [p for p in tus if p.recon is not None]
+    shows = [p for p in tus if p.recon is None]
+    if (len(tus) != 2 * N_HIERB - 1 or len(coded) != N_HIERB
+            or not all(p.payload for p in tus)):
+        raise AssertionError(f"expected {N_HIERB} coded and {N_HIERB - 1} "
+                             f"show-existing TUs, got {len(coded)} and "
+                             f"{len(shows)}")
+    if ([p.display_idx for p in coded] != [0, 8, 4, 2, 1, 3, 6, 5, 7]
+            or not coded[0].is_keyframe
+            or any(p.show or p.is_keyframe for p in coded[1:])
+            or sorted(p.display_idx for p in shows) != list(range(1, 9))):
+        raise AssertionError("hier-B TUs out of the mini-GOP's decode order")
+    want_b = BASE_P_LAUNCHES + sum(B1080.values()) * (N_HIERB - 2)
+    if b_launches != want_b:
+        raise AssertionError(f"the hier-B path launched the gather kernel "
+                             f"{b_launches} times, not {want_b} (5 for the "
+                             f"base P frame, 13 per B frame)")
+    comp = sum(p.compound_cells for p in coded[2:])
+    if comp <= 0:
+        raise AssertionError("no compound cell in the B frames: the jnt "
+                             "path ran on nothing")
+    b_psnr = [p.psnr[0] for p in coded]
+    if not all(25.0 < v < 60.0 for v in b_psnr):
+        raise AssertionError(f"hier-B PSNR-Y out of range: {b_psnr}")
+    b_mean = sum(bsecs[d] for d in range(1, 8)) / 7
+    print(f"  1080p hier-B: {len(coded)} coded + {len(shows)} "
+          f"show-existing TUs, {sum(len(p.payload) for p in tus)} bytes, "
+          f"PSNR-Y {min(b_psnr):.2f}..{max(b_psnr):.2f} dB, gather "
+          f"launches {b_launches}, compound cells {comp} in 7 B frames "
+          f"({comp / (7 * (H1080 // 8) * (W1080 // 8)):.4f} of their cells)",
+          flush=True)
+    print(f"  frame ms: key {key_s * 1e3:.1f}, base P {bsecs[8] * 1e3:.1f}, "
+          f"B mean {b_mean * 1e3:.1f} (min "
+          f"{min(bsecs[d] for d in range(1, 8)) * 1e3:.1f}, max "
+          f"{max(bsecs[d] for d in range(1, 8)) * 1e3:.1f})", flush=True)
+    phase("main path 1080p hier-B (1 key + base P + 7 B, compound)", t)
+
+    t = time.time()
     sizes = parity_phase(svt)
-    print(f"  320x192 IPPP card == CPU, packet bytes {sizes}", flush=True)
-    phase("card vs CPU packets, 320x192 1 key + 2 P", t)
+    for name, sz in sizes.items():
+        print(f"  {name} card == CPU, TU bytes {sz}", flush=True)
+    phase("card vs CPU TUs, 320x192 IPPP and 192x128 hier-B", t)
 
     t = time.time()
     timing_phase(sites, timed)
-    phase("gather timings at the 720p call sites", t)
+    phase("gather timings at the 720p P and 1080p B call sites", t)
 
-    main_sites = [s for s in sites if s["launches_per_p_frame"]]
-
-    def tot(get):
+    def tot(frame, get):
+        """Sum of get(site) over one frame's main-path launches."""
+        main_sites = [s for s in sites
+                      if s["frame"] == frame and s["launches_per_frame"]]
         vals = [get(s) for s in main_sites]
         if None in vals:
             return None
-        return sum(v * s["launches_per_p_frame"]
+        return sum(v * s["launches_per_frame"]
                    for v, s in zip(vals, main_sites))
 
-    dev_us = tot(lambda s: s["main"]["device_us"])
+    def per_frame(frame):
+        dev_us = tot(frame, lambda s: s["main"]["device_us"])
+        return {"ms": tot(frame, lambda s: s["main"]["ms"]),
+                "device_ms": None if dev_us is None else dev_us / 1e3,
+                "host_us": tot(frame, lambda s: s["main"]["host_us"]),
+                "plain_ms": tot(frame, lambda s: s["plain_ms"]),
+                "bound_ms": tot(frame, lambda s: s["bound_ms"]),
+                "library_ms": tot(frame, lambda s: s["take"]["ms"])}
+
     kernels = {"kernels": [{
         "name": "gather_tiles",
         "route": "cuda",
         "source": "svt_av1_tpu_torch/csrc/gather_tiles.cu",
         "replaces": "svt_av1_tpu/ops/gather.py:151",
-        "launches": launches,
+        "launches": launches + b_launches,
         "max_abs_err": max(s["max_abs_err"] for s in sites),
-        "ms": tot(lambda s: s["main"]["ms"]),
-        "device_ms": None if dev_us is None else dev_us / 1e3,
-        "host_us": tot(lambda s: s["main"]["host_us"]),
-        "plain_ms": tot(lambda s: s["plain_ms"]),
-        "bound_ms": tot(lambda s: s["bound_ms"]), "bound_by": "bytes",
-        "library_ms": tot(lambda s: s["take"]["ms"])}]}
-    for d in ["main", *(d for d in G.DESIGNS if d != G.MAIN_DESIGN),
-              "take", "plain"]:
-        dv = tot(lambda s: s[d]["device_us"])
-        print(f"  per P frame, {d:6s}: event "
-              f"{tot(lambda s: s[d]['ms']):.4f} ms, device "
-              f"{'not measured' if dv is None else f'{dv:.2f} us'}, host "
-              f"{tot(lambda s: s[d]['host_us']):.2f} us; bound "
-              f"{tot(lambda s: s['bound_ms']) * 1e3:.2f} us", flush=True)
+        **per_frame("720p P"), "bound_by": "bytes",
+        "per_1080p_b_frame": per_frame("1080p B")}]}
+    for frame in ("720p P", "1080p B"):
+        for d in ["main", *(d for d in G.DESIGNS if d != G.MAIN_DESIGN),
+                  "take", "plain"]:
+            dv = tot(frame, lambda s: s[d]["device_us"])
+            print(f"  per {frame} frame, {d:6s}: event "
+                  f"{tot(frame, lambda s: s[d]['ms']):.4f} ms, device "
+                  f"{'not measured' if dv is None else f'{dv:.2f} us'}, "
+                  f"host {tot(frame, lambda s: s[d]['host_us']):.2f} us; "
+                  f"bound {tot(frame, lambda s: s['bound_ms']) * 1e3:.2f} us",
+                  flush=True)
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
@@ -463,6 +624,11 @@ def main() -> int:
             "build_s": build_s, "sites": sites, "frame_s": secs,
             "packet_bytes": [len(p.payload) for p in pkts],
             "psnr_y": psnr_y, "launches": launches,
+            "hierb": {"key_s": key_s, "coded_s": bsecs,
+                      "tu_bytes": [len(p.payload) for p in tus],
+                      "psnr_y": b_psnr, "launches": b_launches,
+                      "compound_cells": comp},
+            "parity_tu_bytes": sizes,
             "kernels": kernels["kernels"],
             "total_s": time.time() - t0}, indent=1))
     phase("total", t0)

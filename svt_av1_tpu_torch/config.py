@@ -221,17 +221,17 @@ def check_slice(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` naming every enabled setting that the
     port does not run yet.
 
-    The port covers 8-bit CQP encoding at preset 8: all-intra streams and
-    low-delay-P (IPPP) chains with one reference, global motion,
-    deblocking and CDEF.  Everything else is refused by name rather than
-    encoded differently from the reference package.
+    The port covers 8-bit CQP encoding at preset 8: all-intra streams,
+    low-delay-P (IPPP) chains with one reference and global motion, and
+    hierarchical-B random access (``pred_structure=2``, with or without
+    compound prediction), with deblocking and CDEF.  Everything else is
+    refused by name rather than encoded differently from the reference
+    package.
     """
     inter = not cfg.intra_only
     gates = {
         "pred_structure=1 (low-delay B)":
             inter and cfg.pred_structure == PRED_STRUCT_LOW_DELAY_B,
-        "pred_structure=2 (hierarchical B)":
-            inter and cfg.pred_structure == PRED_STRUCT_RANDOM_ACCESS,
         "enc_mode<8 (RD presets: rdo/txs/rect, multi-ref)": cfg.enc_mode < 8,
         "multi_ref=1": cfg.multi_ref == 1,
         "bit_depth=10": cfg.bit_depth == 10,

@@ -1,11 +1,12 @@
 """Inter prediction helpers (AV1 convolve semantics) — port of the parts
-of svt_av1_tpu/ops/mc.py that low-delay-P encoding runs: the 8-tap
-interpolation kernels and the reference-plane padding.  The compound
-(``jnt_*``) helpers follow with hierarchical B.
+of svt_av1_tpu/ops/mc.py that the P and B steps run: the 8-tap
+interpolation kernels, the reference-plane padding and the compound
+(COMPOUND_AVERAGE) constants and average.
 
 The per-block subpel filtering itself lives next to its callers in
 pipeline/inter_encoder.py (``_phase_grid``, ``_interp_patch``), which
-reproduce ref av1_convolve_{x,y,2d}_sr_c rounding case for case.
+reproduce ref av1_convolve_{x,y,2d}_sr_c rounding case for case and,
+for compound blocks, the CONV_BUF-domain av1_jnt_convolve_2d_c output.
 """
 
 from __future__ import annotations
@@ -20,6 +21,13 @@ from svt_av1_tpu_torch import tables
 # InterpFilter): 0=EIGHTTAP_REGULAR, 1=EIGHTTAP_SMOOTH, 2=EIGHTTAP_SHARP
 FILTER_TABLES = ("subpel_filters_regular", "subpel_filters_smooth",
                  "subpel_filters_sharp")
+
+FILTER_BITS = 7
+ROUND0 = 3          # 8-bit conv params round_0 (ref get_conv_params)
+# compound (jnt) convolve: round_1 = 7, CONV_BUF intermediate (ref
+# av1_jnt_convolve_2d_c, EbInterPrediction.c:267)
+JNT_ROUND1 = 7
+JNT_ROUND_BITS = 2 * FILTER_BITS - ROUND0 - JNT_ROUND1   # 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,3 +58,17 @@ def edge_pad(plane, top: int, bottom: int, left: int, right: int):
     rows = torch.arange(-top, h + bottom, device=plane.device).clamp(0, h - 1)
     cols = torch.arange(-left, w + right, device=plane.device).clamp(0, w - 1)
     return plane[rows[:, None], cols[None, :]]
+
+
+def jnt_round_offset(bd: int = 8) -> int:
+    """The compound offset that CONV_BUF values carry (6144 at 8-bit)."""
+    ob = bd + 2 * FILTER_BITS - ROUND0
+    return (1 << (ob - JNT_ROUND1)) + (1 << (ob - JNT_ROUND1 - 1))
+
+
+def jnt_average(res0, res1, bd: int = 8):
+    """COMPOUND_AVERAGE of two CONV_BUF blocks -> pixels (ref
+    av1_jnt_convolve_*_c do_average path, use_jnt_comp_avg=0)."""
+    tmp = ((res0 + res1) >> 1) - jnt_round_offset(bd)
+    return torch.clamp((tmp + (1 << (JNT_ROUND_BITS - 1)))
+                       >> JNT_ROUND_BITS, 0, (1 << bd) - 1)

@@ -1,20 +1,29 @@
 """Public encoder API of the port.
 
 Port of svt_av1_tpu/pipeline/encoder.py for the slice it covers: 8-bit
-CQP at preset 8, all-intra streams and low-delay-P (IPPP) chains with
-one reference (``EncoderConfig(intra_period=-1, pred_structure=0,
-scene_change_detection=False)``), with global motion, deblocking and
-CDEF.  Anything else raises ``NotImplementedError`` (config.check_slice).
+CQP at preset 8 — all-intra streams, low-delay-P (IPPP) chains with one
+reference (``EncoderConfig(intra_period=-1, pred_structure=0,
+scene_change_detection=False)``, with global motion) and hierarchical-B
+random access (``pred_structure=2``, any ``hierarchical_levels``,
+``compound_mode`` 0 or 1), with deblocking and CDEF.  Anything else
+raises ``NotImplementedError`` (config.check_slice).
 
 Dataflow per frame:
-  host pad  ->  device encode (intra wavefront or P step, PyTorch + the
-  CUDA tile gather)  ->  device->host copy of the step outputs  ->
-  host entropy tile (C++ coder, or pipeline.tile)  ->  OBU packetization
+  host pad  ->  device encode (intra wavefront, or the P / B step:
+  PyTorch + the CUDA tile gather)  ->  device->host copy of the step
+  outputs  ->  host entropy tile (C++ coder, or pipeline.tile)  ->  OBU
+  packetization
 
-Reference planes stay on the device between frames.  The reference
-package's TPU transfer packing (one-buffer uploads, packed fetches,
-sparse level packs) is not needed here: the outputs come back as plain
-host arrays.
+The encoder is synchronous: IPPP and all-intra frames come out as they
+are sent.  Hierarchical B buffers the frames of a mini-GOP until it is
+full (or until ``flush()`` / ``send_picture(None)`` codes the truncated
+span), then codes it in the reference package's decode order: coded
+no-show TUs (``Packet.show=False``, ``pts=-1``) interleaved with the
+small show_existing TUs that display them (``Packet.show=True``,
+``pts = display_idx``).  Reference planes stay on the device between
+frames, in an 8-slot book for hierarchical B.  The reference package's
+TPU transfer packing (one-buffer uploads, packed fetches, sparse level
+packs) is not needed here: the outputs come back as plain host arrays.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from svt_av1_tpu_torch.ops import mc as MC
 from svt_av1_tpu_torch.pipeline import analysis as AN
 from svt_av1_tpu_torch.pipeline import inter_encoder as PE
 from svt_av1_tpu_torch.pipeline import intra_encoder as IE
+from svt_av1_tpu_torch.pipeline.gop import (CodeStep, layer_qindex,
+                                            plan_minigop, plan_pins)
 from svt_av1_tpu_torch.pipeline.tile import TileWriter
 
 
@@ -46,7 +57,14 @@ class Packet:
     is_keyframe: bool
     recon: Optional[Frame] = None
     psnr: Optional[tuple] = None
+    # hier-B: coded no-show TUs have show=False (display comes later via
+    # a show_existing TU); display_idx is the display-order position of
+    # the picture this TU codes or shows (None for flat modes)
+    show: bool = True
+    display_idx: Optional[int] = None
     qindex: Optional[int] = None
+    # two-reference frames: 8x8 cells predicted by the compound average
+    compound_cells: Optional[int] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -70,9 +88,12 @@ class Encoder:
         check_slice(config)
         self.cfg = config
         self.device = resolve_device(device)
+        # hier-B random access needs order hints for ref list semantics
+        # and the skip-mode gate (ref Av1GenerateRpsInfo order hints)
+        self._hier = config.pred_structure == 2 and not config.intra_only
         self.seq = O.SequenceParams(
             config.width, config.height, config.bit_depth, config.sb_size,
-            enable_cdef=config.enable_cdef, enable_order_hint=False,
+            enable_cdef=config.enable_cdef, enable_order_hint=self._hier,
             film_grain_present=False, enable_restoration=False,
             enable_warped_motion=False, screen_content=False)
         # frame-level interpolation filter: forced by config, or decided
@@ -87,6 +108,12 @@ class Encoder:
         self._send_idx = 0
         self._packets: list[Packet] = []
         self._ref_dev = None       # device recon planes of the last frame
+        if self._hier:
+            self._store: dict = {}         # disp -> {dev, slot, pins}
+            self._free_slots = list(range(8))
+            self._anchor: Optional[int] = None
+            self._buf: list = []           # (disp, Frame) since anchor
+            self._gop_n = 1 << config.hierarchical_levels
 
     # -- ref eb_svt_enc_stream_header ------------------------------------------
     def stream_header(self) -> bytes:
@@ -94,16 +121,143 @@ class Encoder:
 
     # -- ref eb_svt_enc_send_picture ---------------------------------------------
     def send_picture(self, frame: Optional[Frame]) -> None:
-        """Encode the picture; its packet is then ready for get_packet.
-        send_picture(None) signals end-of-stream (nothing is buffered in
-        this slice)."""
+        """Encode the picture (IPPP / all-intra: its packet is then ready
+        for get_packet; hier-B: buffered until its mini-GOP is full).
+        send_picture(None) signals end-of-stream and flushes any buffered
+        mini-GOP."""
         if frame is None:
             self.flush()
             return
-        self._dispatch_one(frame)
+        if self._hier:
+            self._hier_send(frame)
+        else:
+            self._dispatch_one(frame)
 
     def flush(self) -> None:
-        """End-of-stream: the IPPP / all-intra slice buffers no frames."""
+        """End-of-stream: code any buffered partial mini-GOP (truncated
+        dyadic structure, like the reference's incomplete mini-GOP
+        handling in picture decision)."""
+        if self._hier and self._buf:
+            self._dispatch_span()
+
+    # -- hierarchical-B scheduling (ref picture_decision_kernel) ---------------
+    def _hier_send(self, frame: Frame) -> None:
+        d = self._send_idx
+        self._send_idx += 1
+        if self._anchor is None or self._is_key(d):
+            self._dispatch_span()          # truncated GOP before the key
+            self._code_key_anchor(d, frame)
+        else:
+            self._buf.append((d, frame))
+            if len(self._buf) >= self._gop_n:
+                self._dispatch_span()
+
+    def _hint(self, disp: int) -> int:
+        return disp & ((1 << self.seq.order_hint_bits) - 1)
+
+    def _unpin(self, disp: int) -> None:
+        e = self._store[disp]
+        e["pins"] -= 1
+        if e["pins"] <= 0:
+            self._free_slots.append(e["slot"])
+            del self._store[disp]
+
+    def _code_key_anchor(self, disp: int, frame: Frame) -> None:
+        """Shown keyframe: decoder-side it refreshes every slot, so the
+        slot book restarts with the keyframe in slot 0."""
+        qindex = self._frame_qindex()
+        dev, planes = self._intra_dispatch(frame, qindex)
+        self._store = {disp: {"dev": planes, "slot": 0, "pins": 1}}
+        self._free_slots = list(range(1, 8))
+        self._anchor = disp
+        pkt = self._make_packet(frame, dev, qindex, self._hint(disp))
+        pkt.pts = pkt.display_idx = disp
+        self._packets.append(pkt)
+
+    def _dispatch_span(self) -> None:
+        """Code the buffered span (anchor, last] in dyadic decode order,
+        with show_existing TUs interleaved (gop.plan_minigop).  Pins
+        count each picture's remaining uses (as a reference, its show
+        step, and the next span's anchor); a slot is free again when its
+        picture's pins reach 0."""
+        if not self._buf:
+            return
+        lo = self._anchor
+        hi = self._buf[-1][0]
+        frames = dict(self._buf)
+        self._buf = []
+        steps = plan_minigop(lo, hi)
+        pins = plan_pins(steps, lo)
+        pins[hi] = pins.get(hi, 0) + 1     # hi becomes the next anchor
+        pending_pins = {}
+        for d, n in pins.items():
+            if d in self._store:
+                self._store[d]["pins"] += n
+            else:
+                pending_pins[d] = n
+        self._unpin(lo)                    # release the old anchor pin
+        for step in steps:
+            if isinstance(step, CodeStep):
+                q = layer_qindex(self._frame_qindex(), step.layer)
+                self._dispatch_code(step, frames[step.disp], q,
+                                    pending_pins.pop(step.disp, 0))
+                self._unpin(step.fwd)
+                if step.bwd is not None:
+                    self._unpin(step.bwd)
+            else:
+                payload = O.write_show_existing(
+                    self._store[step.disp]["slot"])
+                self._packets.append(Packet(payload, step.disp, False,
+                                            display_idx=step.disp))
+                self._unpin(step.disp)
+        self._anchor = hi
+
+    def _dispatch_code(self, step, frame: Frame, qindex: int,
+                       pins: int) -> None:
+        """Code one hier-B frame, no-show: the mini-GOP base through the
+        one-reference P step (no global motion: it is IPPP-only), an
+        interior frame through the two-reference B step (LAST = the
+        forward reference, ALTREF = the backward one)."""
+        cfg = self.cfg
+        _, _, ph64, pw64 = self._geometry
+        sy, su, sv = self._upload_src(frame)
+        fwd = self._store[step.fwd]
+        bwd = fwd if step.bwd is None else self._store[step.bwd]
+        lvls = self._lf_levels(qindex, False)
+        filt = self._pick_interp(frame, qindex)
+        dyn = (qindex, lvls[0], lvls[2], lvls[3])
+        compound = False
+        if step.bwd is None:
+            nrefs = 1
+            fn = PE.build_p_frame_encoder_dyn(
+                ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
+                cdef=cfg.enable_cdef, bd=cfg.bit_depth, filt=filt)
+            out = fn(sy, su, sv, *fwd["dev"], *dyn)
+        else:
+            nrefs = 2
+            compound = cfg.compound_mode > 0
+            fn = PE.build_b_frame_encoder_dyn(
+                ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
+                cdef=cfg.enable_cdef, compound=compound, bd=cfg.bit_depth,
+                filt=filt)
+            out = fn(sy, su, sv, *fwd["dev"], *bwd["dev"], *dyn)
+        slot = self._free_slots.pop(0)
+        self._store[step.disp] = {"dev": self._recon_as_ref(out),
+                                  "slot": slot, "pins": pins}
+        fs, bs = fwd["slot"], bwd["slot"]
+        fh = self._hint(step.fwd)
+        bh = fh if step.bwd is None else self._hint(step.bwd)
+        meta = {"nrefs": nrefs, "compound": compound,
+                "ref_types": (1, 7),              # LAST, ALTREF
+                "order_hint": self._hint(step.disp),
+                "refresh": 1 << slot,
+                "ref_idx": (fs, fs, fs, fs, bs, bs, bs),
+                "ref_hints": (fh, fh, fh, fh, bh, bh, bh)}
+        arrs = [a.cpu().numpy() for a in out]
+        pkt = self._make_inter_packet(frame, arrs, qindex, None, meta)
+        pkt.show = False
+        pkt.display_idx = step.disp
+        self._packets.append(pkt)
 
     def _is_key(self, idx: int) -> bool:
         p = self.cfg.intra_period
@@ -139,6 +293,13 @@ class Encoder:
                 MC.edge_pad(u, 0, (ph64 - ph) // 2, 0, (pw64 - pw) // 2),
                 MC.edge_pad(v, 0, (ph64 - ph) // 2, 0, (pw64 - pw) // 2))
 
+    def _recon_as_ref(self, out):
+        """A P / B step's recon planes (outputs 5-7) as a reference."""
+        ph, pw, _, _ = self._geometry
+        return self._as_ref_planes(out[5][:ph, :pw],
+                                   out[6][: ph // 2, : pw // 2],
+                                   out[7][: ph // 2, : pw // 2])
+
     def _pick_interp(self, frame: Frame, qindex: int) -> int:
         """Resolve the stream's interpolation filter (spec
         interpolation_filter; decided once, on the first inter frame)."""
@@ -155,7 +316,7 @@ class Encoder:
         key = self._is_key(idx)
         qindex = self._frame_qindex()
         self._send_idx += 1
-        ph, pw, ph64, pw64 = self._geometry
+        _, _, ph64, pw64 = self._geometry
         if key or self._ref_dev is None:
             dev, self._ref_dev = self._intra_dispatch(frame, qindex)
             if self._gm_enab:
@@ -176,9 +337,7 @@ class Encoder:
                 filt=self._pick_interp(frame, qindex), gm=self._gm_enab)
             out = fn(sy, su, sv, *self._ref_dev, qindex, lvls[0], lvls[2],
                      lvls[3], gmv or (0, 0))
-            self._ref_dev = self._as_ref_planes(
-                out[5][:ph, :pw], out[6][: ph // 2, : pw // 2],
-                out[7][: ph // 2, : pw // 2])
+            self._ref_dev = self._recon_as_ref(out)
             arrs = [a.cpu().numpy() for a in out]
             pkt = self._make_inter_packet(frame, arrs, qindex, gmv)
         pkt.pts = idx
@@ -236,15 +395,40 @@ class Encoder:
         px = lambda a: a.to(torch.uint8)
         return (px(y), px(u), px(v)), idx_sb
 
-    def _make_inter_packet(self, frame: Frame, arrs, qindex: int,
-                           gmv) -> Packet:
+    def _make_inter_packet(self, frame: Frame, arrs, qindex: int, gmv,
+                           meta=None) -> Packet:
+        """Entropy-code one P / B step's host outputs.  meta (hier-B):
+        the step's reference count and compound flag, its ref types,
+        slots and order hints, and its own order hint and refresh slot."""
         cfg = self.cfg
-        lay = PE.inter_layout(1, False, False, lv8=False, lr=False)
+        nr = meta["nrefs"] if meta else 1
+        compound = bool(meta and meta["compound"])
+        lay = PE.inter_layout(nr, compound, False, lv8=False, lr=False)
         sizes = arrs[lay["sizes"]]
         mv = arrs[lay["mv"]].astype(np.int32)
         packs = (arrs[lay["ly"]], arrs[lay["lu"]], arrs[lay["lv"]])
         cdef_idx = arrs[lay["cdef"]] if cfg.enable_cdef else None
         gm = {1: gmv} if gmv is not None else None
+        # per-cell ref types from the step's ref8 field (0 -> ref0,
+        # 1 -> ref1, nrefs -> compound: 0 in refs8, the frame-level pair)
+        refs8 = mvs2 = comp_pair = None
+        ref_select = False
+        n_comp = None
+        if nr >= 2:
+            types = meta["ref_types"]
+            mode8 = arrs[lay["ref8"]]
+            refs8 = np.zeros_like(mode8, np.uint8)
+            for k in range(nr):
+                refs8[mode8 == k] = types[k]
+            n_comp = int((mode8 == nr).sum())
+            # reference_select only when compound blocks exist
+            ref_select = compound and n_comp > 0
+            if ref_select:
+                mvs2 = arrs[lay["mv2"]].astype(np.int32)
+                comp_pair = (types[0], types[1])
+        sign_bias = (O.ref_sign_biases(self.seq, meta["order_hint"],
+                                       meta["ref_hints"])
+                     if meta else None)
         hm, wm = self.seq.mi_rows, self.seq.mi_cols
         fc = FrameContext(qindex)
         tile = None
@@ -253,17 +437,27 @@ class Encoder:
             if native.available():
                 tile = native.encode_tile_inter_cpp(
                     fc, hm, wm, qindex, sizes, mv, packs=packs,
-                    cdef_idx=cdef_idx, refs=None, sign_bias=None,
-                    mvs2=None, comp_pair=(1, 7), txty=None, gm=gm,
-                    qmap=None, delta_q_res=0)
+                    cdef_idx=cdef_idx, refs=refs8, sign_bias=sign_bias,
+                    mvs2=mvs2, comp_pair=comp_pair or (1, 7), txty=None,
+                    gm=gm, qmap=None, delta_q_res=0)
             elif cfg.entropy_backend == "cpp":
                 raise RuntimeError("C++ entropy backend unavailable")
         if tile is None:
             lv = {bs: tuple(_unpack_levels(packs[p], bs) for p in range(3))
                   for bs in (8, 16, 32, 64)}
             tw = TileWriter(fc, hm, wm, qindex, frame_mi=(hm, wm))
-            tile = tw.encode_inter(sizes, mv, lv, cdef_idx=cdef_idx, gm=gm)
-        hdr = {"refresh_frame_flags": 0x01}
+            tile = tw.encode_inter(sizes, mv, lv, cdef_idx=cdef_idx,
+                                   refs=refs8, sign_bias=sign_bias,
+                                   comp_pair=comp_pair, mvs2=mvs2, gm=gm)
+        if meta:
+            hdr = {"show_frame": False,
+                   "order_hint": meta["order_hint"],
+                   "refresh_frame_flags": meta["refresh"],
+                   "ref_frame_idx": meta["ref_idx"],
+                   "ref_order_hints": meta["ref_hints"],
+                   "reference_select": ref_select}
+        else:
+            hdr = {"refresh_frame_flags": 0x01}
         if gm:
             gm_types = [0] * 7
             gm_trans = [(0, 0)] * 7
@@ -288,9 +482,11 @@ class Encoder:
             recon = self._crop_recon(arrs[lay["rec_y"]], arrs[lay["rec_u"]],
                                      arrs[lay["rec_v"]])
         psnr = _psnr(frame, recon) if (cfg.stat_report and recon) else None
-        return Packet(payload, -1, False, recon, psnr, qindex=qindex)
+        return Packet(payload, -1, False, recon, psnr, qindex=qindex,
+                      compound_cells=n_comp)
 
-    def _make_packet(self, frame: Frame, dev: dict, qindex: int) -> Packet:
+    def _make_packet(self, frame: Frame, dev: dict, qindex: int,
+                     order_hint: int = 0) -> Packet:
         cfg = self.cfg
         fc = FrameContext(qindex)
         cdef_idx = dev.get("cdef_idx") if cfg.enable_cdef else None
@@ -311,7 +507,7 @@ class Encoder:
         fp = O.FrameParams(base_q_idx=qindex,
                            tile_cols_log2=0, tile_rows_log2=0,
                            filter_levels=self._lf_levels(qindex, True),
-                           order_hint=0, film_grain=None,
+                           order_hint=order_hint, film_grain=None,
                            lr_types=(0, 0, 0), lr_uv_shift=1,
                            allow_screen_content=False, allow_intrabc=False,
                            **self._cdef_params(qindex))

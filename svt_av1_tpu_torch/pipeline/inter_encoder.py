@@ -1,15 +1,20 @@
-"""P-frame encoder in PyTorch: batched ME + MC + transform coding with
-variable partitions.
+"""P- and B-frame encoder in PyTorch: batched ME + MC + transform coding
+with variable partitions.
 
-Port of svt_av1_tpu/pipeline/inter_encoder.py for the low-delay-P slice:
-``p_frame_step`` with nrefs=1, compound=False, rdo=False (preset 8),
-txs=False, rect=False, lr=False, aq=False, with or without the global
-motion candidate.  Inter prediction has no intra-frame dependency, so a
-P frame is one bulk-parallel program over every block:
+Port of svt_av1_tpu/pipeline/inter_encoder.py at preset 8 (rdo=False,
+txs=False, rect=False, lr=False, aq=False): ``p_frame_step`` with one
+reference (low-delay P and the hierarchical-B base layer, with or
+without the global motion candidate) or two (hierarchical-B interior
+frames: the forward and the backward reference, optionally with the
+COMPOUND_AVERAGE of the two).  Inter prediction has no intra-frame
+dependency, so a frame is one bulk-parallel program over every block:
 
-  hierarchical full-pel ME (HME centers, center-warped +-3 lattice)
-  -> fast SAD-domain partition merge (8/16/32/64)
-  -> one quarter-pel refinement per 8x8 cell against the true reference
+  hierarchical full-pel ME per reference (HME centers, center-warped
+  +-3 lattice)
+  -> fast SAD-domain partition merge (8/16/32/64) on the cheaper
+     reference's cost
+  -> one quarter-pel refinement per 8x8 cell and reference against the
+     true reference, then the per-cell reference / compound choice
   -> MC at cell granularity -> residual coding at every leaf size
   -> per-cell selection -> deblocking + CDEF.
 
@@ -48,7 +53,9 @@ _LEAF = RDO.inter_leaf_bits()          # mode / ref_single / comp_extra
 def inter_layout(nrefs: int, compound: bool, txs: bool, lv8: bool,
                  lr: bool, rect: bool = False) -> dict:
     """name -> output-tuple index for a p_frame_step build (the port
-    builds nrefs=1, compound/txs/lv8/lr/rect False: the first nine)."""
+    builds txs/lv8/lr/rect False: the first nine names, then ``ref8``
+    for nrefs=2 and ``mv2`` for compound; the reference package's
+    names and indices for the same flags)."""
     names = ["sizes", "mv", "ly", "lu", "lv", "rec_y", "rec_u", "rec_v",
              "cdef"]
     if nrefs >= 2:
@@ -203,13 +210,17 @@ def _filter_table_on(filt: int, device: torch.device):
     return torch.as_tensor(np.array(table, np.int32), device=device)
 
 
-def _interp_patch(patch, ph_r, ph_c, bs: int, bd: int, filt: int = 0):
+def _interp_patch(patch, ph_r, ph_c, bs: int, bd: int, filt: int = 0,
+                  jnt: bool = False, both: bool = False):
     """Per-block subpel interpolation on gathered patches.
 
     patch: [N, bs+7, bs+7] full-pel windows (top-left at position - 3,
-    the 8-tap halo); ph_r/ph_c: [nbh, nbw] phase16 indices.  Reproduces
-    the reference's copy / x-only / y-only / 2-D rounding, selected per
-    block.  Returns [nbh, nbw, bs, bs] int32."""
+    the 8-tap halo); ph_r/ph_c: [nbh, nbw] phase16 indices.  The regular
+    output reproduces the reference's copy / x-only / y-only / 2-D
+    rounding, selected per block; ``jnt`` returns instead the
+    CONV_BUF-domain av1_jnt_convolve_2d output (one formula for every
+    phase), and ``both`` returns (regular, CONV_BUF) from one shared
+    convolution.  Each is [nbh, nbw, bs, bs] int32."""
     table = _filter_table_on(filt, patch.device)         # [16, 8]
     nbh, nbw = ph_r.shape
     kx = table[ph_c.reshape(-1).long()]                  # [N, 8]
@@ -234,9 +245,15 @@ def _interp_patch(patch, ph_r, ph_c, bs: int, bd: int, filt: int = 0):
             out = t if out is None else out + t
         return out                                       # [bs, cols, N]
 
+    fin = lambda x: x.permute(2, 0, 1).reshape(nbh, nbw, bs, bs)
     hc = hconv(p)                                        # [bs+7, bs, N]
     im = rs(hc + offset0, 3)
     twod_acc = vconv(im)
+    jnt_out = None
+    if jnt or both:
+        jnt_out = fin(rs(twod_acc + (1 << ob), MC.JNT_ROUND1))
+        if not both:
+            return jnt_out
     sub = (1 << (bd - 1)) + (1 << (bd - 2))
     twod = torch.clamp(rs(twod_acc + (1 << ob), 11) - sub, 0, hi)
     x_only = torch.clamp(rs(rs(hc[3: 3 + bs], 3), 4), 0, hi)
@@ -244,10 +261,10 @@ def _interp_patch(patch, ph_r, ph_c, bs: int, bd: int, filt: int = 0):
     copy = p[3: 3 + bs, 3: 3 + bs, :]
     phx0 = ph_c.reshape(-1) == 0
     phy0 = ph_r.reshape(-1) == 0
-    out = torch.where(phx0 & phy0, copy,
-                      torch.where(phy0, x_only,
-                                  torch.where(phx0, y_only, twod)))
-    return out.permute(2, 0, 1).reshape(nbh, nbw, bs, bs)
+    out = fin(torch.where(phx0 & phy0, copy,
+                          torch.where(phy0, x_only,
+                                      torch.where(phx0, y_only, twod))))
+    return (out, jnt_out) if both else out
 
 
 def _gather_mc_patch(plane_pad, mv8, bs: int, pad: int, chroma: bool):
@@ -262,6 +279,18 @@ def _gather_mc_patch(plane_pad, mv8, bs: int, pad: int, chroma: bool):
     patch = G.gather_blocks_grid(plane_pad, f_r, f_c, bs, pad, pad,
                                  halo=7, off=-3)
     return patch, ph_r, ph_c
+
+
+def _mc_patch(plane_pad, mv8, bs: int, pad: int, chroma: bool, bd: int,
+              jnt: bool = False, filt: int = 0):
+    """Subpel MC via one grid-anchored patch gather + on-patch interp."""
+    patch, ph_r, ph_c = _gather_mc_patch(plane_pad, mv8, bs, pad, chroma)
+    return _interp_patch(patch, ph_r, ph_c, bs, bd, filt, jnt=jnt)
+
+
+# compound signaling beyond a single-ref leaf (comp_inter + ref pair +
+# NEW_NEWMV symbol), from the default CDFs
+COMP_EXTRA_BITS = round(_LEAF["comp_extra"])
 
 
 def _coeff_bits(lv):
@@ -310,21 +339,27 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                  txs: bool = False, filt: int = 0, gm: bool = False,
                  lr: bool = False, rect: bool = False, filters: bool = True,
                  aq: bool = False, cdef: bool = True):
-    """Build the P-frame encode step (a plain callable).
+    """Build the P/B-frame encode step (a plain callable).
 
     Geometry: ph, pw are the 64-padded plane dims; mi_rows/mi_cols the
     frame's mode-info grid.
-    step(sy [ph,pw], su, sv [ph/2,pw/2], ref_y, ref_u, ref_v, qindex,
-         lf_y, lf_u, lf_v, gmv=None)
+    step(sy [ph,pw], su, sv [ph/2,pw/2], ref0_y, ref0_u, ref0_v
+         [, ref1_y, ref1_u, ref1_v when nrefs=2], qindex, lf_y, lf_u,
+         lf_v[, gmv])
     -> (sizes [nb8h,nb8w] u8 (8..64 leaf size covering each 8x8 cell),
-        mv8 [nb8h,nb8w,2] i16 (selected leaf MV in 1/8 pel),
+        mv8 [nb8h,nb8w,2] i16 (selected cell MV in 1/8 pel),
         ly [nb8h,nb8w,8,8], lu, lv [nb8h,nb8w,4,4] i16 per-cell levels,
         recon_y [ph,pw] u8, recon_u, recon_v, cdef idx [sb rows, sb cols]
-        u8) — inter_layout(1, False, False, False, False) order.
+        u8[, ref8 [nb8h,nb8w] u8 (0 = ref0/fwd, 1 = ref1/bwd, 2 =
+        compound) when nrefs=2][, mv2 [nb8h,nb8w,2] i16 (the compound
+        cells' ref1 MV) when compound]) — inter_layout(nrefs, compound,
+        False, False, False) order.
     qindex and the loop-filter levels are Python ints; gmv is the
-    frame's (row, col) global translation in 1/8 pel (gm=True only).
+    frame's (row, col) global translation in 1/8 pel (gm=True with one
+    reference only, as in the reference package).
     """
-    unported = {"nrefs>1": nrefs != 1, "compound": compound,
+    unported = {"nrefs>2": nrefs > 2,
+                "compound with nrefs=1": compound and nrefs == 1,
                 "bit_depth=10": bd != 8, "rdo": rdo, "txs": txs,
                 "rect": rect, "lr": lr, "aq": aq,
                 "filters=False": not filters}
@@ -334,13 +369,15 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                                   "not ported")
     pad = search + 1
     cpad = pad // 2 + 1
+    r2 = 3                  # +-r2 full-pel lattice around the HME centers
     nb8h, nb8w = ph // 8, pw // 8
     ph_mi, pw_mi = mi_rows * 4, mi_cols * 4
     inside = _inside_masks(ph, pw, mi_rows, mi_cols)
     ac_table = _tbl.spec_tables()[f"ac_qlookup_{bd}"]
     kern_c = _filter_kern(filt)
-    # fast-merge overheads (mode + partition symbols, lambda-scaled below)
-    mb = _LEAF["mode"]
+    # fast-merge overheads (mode + partition symbols, lambda-scaled below;
+    # two-reference frames add the single_ref bin)
+    mb = _LEAF["mode"] + (_LEAF["ref_single"] if nrefs >= 2 else 0)
     oh_bits = {bs: round(mb + _PART_BITS[bs][0]) for bs in SIZES64}
     sp_bits = {bs: round(_PART_BITS[bs][1]) for bs in (16, 32, 64)}
     # merged-cell refinement lattice: 5x5 quarter-pel offsets (1/8 units)
@@ -348,8 +385,10 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     cand = [(dy, dx) for dy in range(-reach_q, reach_q + 1, 2)
             for dx in range(-reach_q, reach_q + 1, 2)]
 
-    def step(sy, su, sv, ry, ru, rv, qindex: int, lf_y: int, lf_u: int,
-             lf_v: int, gmv=None):
+    def step(sy, su, sv, *rest):
+        refs = rest[: 3 * nrefs]
+        qindex, lf_y, lf_u, lf_v = rest[3 * nrefs: 3 * nrefs + 4]
+        gmv = rest[3 * nrefs + 4] if len(rest) > 3 * nrefs + 4 else None
         dev = sy.device
         q = int(qindex)
         lam = max(8, int(ac_table[q]) // 4)
@@ -358,44 +397,57 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         sy = sy.to(torch.int32)
         su = su.to(torch.int32)
         sv = sv.to(torch.int32)
-        py_pad = MC.pad_for_filter(ry, pad)
-        pu_pad = MC.pad_for_filter(ru, cpad)
-        pv_pad = MC.pad_for_filter(rv, cpad)
+        padded = [(MC.pad_for_filter(refs[3 * i], pad),
+                   MC.pad_for_filter(refs[3 * i + 1], cpad),
+                   MC.pad_for_filter(refs[3 * i + 2], cpad))
+                  for i in range(nrefs)]
 
-        # --- hierarchical full-pel ME: quarter-res center search, then a
-        # +-r2 multi-size sweep on the center-warped reference ---------
-        r2 = 3
-        centers = ME.hme_centers(sy, ry.to(torch.int32),
-                                 search_reach=search - r2)
-        ref_pad = MC.edge_pad(ry, search, search, search, search)
-        warped = ME.warp_by_centers(ref_pad, centers, 32, search)
-        lat = ME.sad_lattice_multisize(sy, warped, r2, bd)
-        p1 = ME.select_from_lattice(lat, centers, 32, r2)
-        priors = {bs: ME.median3_mv_field(p1[bs][0]) for bs in SIZES}
-        p2 = ME.select_from_lattice(lat, centers, 32, r2, lam, priors)
-        priors[64] = priors[32][::2, ::2]
-        mv = {bs: p2[bs][0] * 8 for bs in SIZES}     # 1/8-pel units
-        cost = {bs: p2[bs][1] for bs in SIZES}
-        # the 64 level straight from the lattice (2x2 sums of the 32 level)
-        lat64 = _blocksum2(lat[32])
-        cen64 = centers[::2, ::2]
-        dyx64 = ME._offset_table(r2, dev)
-        c64 = lat64 + ((lam * ME.mv_rate_bits(
-            (cen64[None] + dyx64[:, None, None, :]) * 8
-            - priors[64][None] * 8)) >> 4)
-        k64 = torch.argmin(c64, 0)
-        mv[64] = (cen64 + dyx64[k64]) * 8
-        cost[64] = c64.min(0).values
+        def me_one_ref(ry_i, centers):
+            """Hierarchical full-pel ME against one reference: a +-r2
+            multi-size sweep on the center-warped reference, then the
+            rate-biased winners per size and the 64 level from 2x2 sums
+            of the 32 level.  Returns ({bs: mv 1/8 pel}, {bs: cost},
+            {bs: full-pel MVP prior})."""
+            ref_pad = MC.edge_pad(ry_i, search, search, search, search)
+            warped = ME.warp_by_centers(ref_pad, centers, 32, search)
+            lat = ME.sad_lattice_multisize(sy, warped, r2, bd)
+            p1 = ME.select_from_lattice(lat, centers, 32, r2)
+            priors = {bs: ME.median3_mv_field(p1[bs][0]) for bs in SIZES}
+            p2 = ME.select_from_lattice(lat, centers, 32, r2, lam, priors)
+            priors[64] = priors[32][::2, ::2]
+            mv_i = {bs: p2[bs][0] * 8 for bs in SIZES}   # 1/8-pel units
+            cost_i = {bs: p2[bs][1] for bs in SIZES}
+            lat64 = _blocksum2(lat[32])
+            cen64 = centers[::2, ::2]
+            dyx64 = ME._offset_table(r2, dev)
+            c64 = lat64 + ((lam * ME.mv_rate_bits(
+                (cen64[None] + dyx64[:, None, None, :]) * 8
+                - priors[64][None] * 8)) >> 4)
+            k64 = torch.argmin(c64, 0)
+            mv_i[64] = (cen64 + dyx64[k64]) * 8
+            cost_i[64] = c64.min(0).values
+            return mv_i, cost_i, priors
 
-        if gm:
+        # quarter-res center search against ref0; the backward reference
+        # of a two-reference frame starts from the mirrored centers (the
+        # hier-B references sit symmetrically around the source)
+        centers0 = ME.hme_centers(sy, refs[0].to(torch.int32),
+                                  search_reach=search - r2)
+        per_ref = [me_one_ref(refs[0], centers0)]
+        if nrefs == 2:
+            per_ref.append(me_one_ref(
+                refs[3], torch.clamp(-centers0, -(search - r2), search - r2)))
+        mv, cost = dict(per_ref[0][0]), dict(per_ref[0][1])
+
+        if gm and nrefs == 1:
             # GLOBALMV candidate: the estimator emits FULL-pel global
             # vectors, so one copy-gather at the 8 level + 2x2 sums score
             # every size; charged mode bits but no MV bits
             g = (0, 0) if gmv is None else (int(gmv[0]), int(gmv[1]))
             full = lambda v: torch.full((nb8h, nb8w), v >> 3,
                                         dtype=torch.int32, device=dev)
-            tiles = G.gather_blocks_grid(py_pad, full(g[0]), full(g[1]),
-                                         8, pad, pad - 1)
+            tiles = G.gather_blocks_grid(padded[0][0], full(g[0]),
+                                         full(g[1]), 8, pad, pad - 1)
             sadg = {8: (_block(sy, 8) - tiles.reshape(nb8h, nb8w, 8, 8)
                         .to(torch.int32)).abs().sum((-1, -2),
                                                     dtype=torch.int32)}
@@ -407,6 +459,12 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                 use_g = costg < cost[bs]
                 mv[bs] = torch.where(use_g[..., None], mvg_one, mv[bs])
                 cost[bs] = torch.minimum(costg, cost[bs])
+        # per-reference MV fields for the cell refinement; the merge runs
+        # on the cheaper reference's cost at every size
+        per_ref_mv = [mv] + [per_ref[i][0] for i in range(1, nrefs)]
+        for i in range(1, nrefs):
+            cost = {bs: torch.minimum(per_ref[i][1][bs], cost[bs])
+                    for bs in SIZES64}
 
         # --- fast SAD-domain rate-biased partition merge ---------------
         oh = {bs: (lam * oh_bits[bs]) >> 4 for bs in SIZES64}
@@ -443,52 +501,126 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
 
         sq_cells = lambda d: {0: d[8], 1: _up(d[16], 2), 2: _up(d[32], 4),
                               3: _up(d[64], 8)}
+        # the per-level value of each cell's leaf ({bs: level array})
+        leaf_cells = lambda d: kpick({ki: _up(d[bs_], bs_ // 8)
+                                      for ki, bs_ in enumerate(SIZES64)},
+                                     d[8].dtype)
 
-        # --- merged-cell quarter-pel refinement: each cell anchors at its
-        # leaf's full-pel winner; a shared 25-candidate lattice is scored
-        # per cell against the TRUE reference, and each LEAF picks the
-        # candidate minimizing the sum of its cells' SADs (+ MV rate) ---
+        # --- merged-cell quarter-pel refinement, per reference: each cell
+        # anchors at its leaf's full-pel winner; a shared 25-candidate
+        # lattice is scored per cell against the TRUE reference, and each
+        # LEAF picks the candidate minimizing the sum of its cells' SADs
+        # (+ MV rate) ---------------------------------------------------
         dyx_c = torch.tensor(cand, dtype=torch.int32, device=dev)
         src8T = _block(sy, 8).reshape(-1, 8, 8).permute(1, 2, 0).to(
             torch.int16)
-        mvc8 = kpick(sq_cells(mv), torch.int32)
-        patch = G.gather_blocks_grid(py_pad, mvc8[..., 0] >> 3,
-                                     mvc8[..., 1] >> 3, 8, pad, pad - 1,
-                                     halo=8, off=-4)
-        P = _phase_grid(patch.permute(1, 2, 0).to(torch.int32), 8, bd,
-                        kern_c)
-        sads = []
-        for dy, dx in cand:
+
+        def cand_slice(P, ci):
+            dy, dx = cand[ci]
             pyi, pxi = ((2 * dy) & 15) >> 2, ((2 * dx) & 15) >> 2
             fy, fx = dy >> 3, dx >> 3
-            pred = P[pyi][pxi][fy + 1: fy + 9, fx + 1: fx + 9, :]
-            sads.append((src8T - pred).abs().sum((0, 1), dtype=torch.int32)
-                        .reshape(nb8h, nb8w))
-        lvl = torch.stack(sads)
-        idx_l = {}
-        for bs in SIZES64:
-            if bs > 8:
-                lvl = _blocksum2(lvl)
-            cl = lvl + ((lam * ME.mv_rate_bits(
-                mv[bs][None] + dyx_c[:, None, None, :]
-                - priors[bs][None] * 8)) >> 4)
-            idx_l[bs] = torch.argmin(cl, 0)
-        kcell = kpick({ki: _up(idx_l[bs_], bs_ // 8)
-                       for ki, bs_ in enumerate(SIZES64)}, torch.long)
-        mv_sel = (mvc8 + dyx_c[kcell]).to(torch.int16)
+            return P[pyi][pxi][fy + 1: fy + 9, fx + 1: fx + 9, :]
+
+        def refine_ref(i):
+            """-> (refined cell MVs [nb8h,nb8w,2] i32, {bs: leaf cost},
+            phase grid, per-cell candidate index)."""
+            mvc8 = kpick(sq_cells(per_ref_mv[i]), torch.int32)
+            patch = G.gather_blocks_grid(padded[i][0], mvc8[..., 0] >> 3,
+                                         mvc8[..., 1] >> 3, 8, pad, pad - 1,
+                                         halo=8, off=-4)
+            P = _phase_grid(patch.permute(1, 2, 0).to(torch.int32), 8, bd,
+                            kern_c)
+            lvl = torch.stack([
+                (src8T - cand_slice(P, ci)).abs().sum((0, 1),
+                                                      dtype=torch.int32)
+                .reshape(nb8h, nb8w) for ci in range(len(cand))])
+            idx_l, cost_l = {}, {}
+            for bs in SIZES64:
+                if bs > 8:
+                    lvl = _blocksum2(lvl)
+                cl = lvl + ((lam * ME.mv_rate_bits(
+                    per_ref_mv[i][bs][None] + dyx_c[:, None, None, :]
+                    - per_ref[i][2][bs][None] * 8)) >> 4)
+                idx_l[bs] = torch.argmin(cl, 0)
+                cost_l[bs] = cl.min(0).values
+            kcell = leaf_cells(idx_l)
+            return mvc8 + dyx_c[kcell], cost_l, P, kcell
+
+        ref_fine = [refine_ref(i) for i in range(nrefs)]
+        ref8 = mv2_sel = None
+        if nrefs == 1:
+            mv_sel = ref_fine[0][0].to(torch.int16)
+        else:
+            sadc = None
+            if compound:
+                # compound decision from the refined cell predictions: a
+                # pixel-domain average (the recon below uses the exact
+                # CONV_BUF-domain jnt average)
+                def pred_sel(P, kcell):
+                    allc = torch.stack([cand_slice(P, ci)
+                                        for ci in range(len(cand))])
+                    idx = kcell.reshape(1, 1, 1, -1).expand(1, 8, 8, -1)
+                    return torch.gather(allc, 0, idx)[0]
+                p0s = pred_sel(ref_fine[0][2], ref_fine[0][3])
+                p1s = pred_sel(ref_fine[1][2], ref_fine[1][3])
+                avg = (p0s.to(torch.int32) + p1s + 1) >> 1
+                sadc = ((src8T.to(torch.int32) - avg).abs()
+                        .sum((0, 1), dtype=torch.int32).reshape(nb8h, nb8w))
+            sel_l = {}
+            for bs in SIZES64:
+                k = bs // 8
+                costs = torch.stack([ref_fine[i][1][bs]
+                                     for i in range(nrefs)])
+                s = torch.argmin(costs, 0).to(torch.uint8)
+                if compound:
+                    if bs > 8:
+                        sadc = _sum4(sadc)
+                    if bs >= 16:
+                        # 8x8 leaves stay single-ref (rarely compound,
+                        # the most costly)
+                        r0 = ME.mv_rate_bits(ref_fine[0][0][::k, ::k]
+                                             - per_ref[0][2][bs] * 8)
+                        r1 = ME.mv_rate_bits(ref_fine[1][0][::k, ::k]
+                                             - per_ref[1][2][bs] * 8)
+                        cc = sadc + ((lam * (r0 + r1 + COMP_EXTRA_BITS))
+                                     >> 4)
+                        s = torch.where(cc < costs.min(0).values,
+                                        nrefs, s).to(torch.uint8)
+                sel_l[bs] = s
+            ref8 = leaf_cells(sel_l)
+            mv_sel = torch.where((ref8 == 1)[..., None], ref_fine[1][0],
+                                 ref_fine[0][0]).to(torch.int16)
+            if compound:
+                mv2_sel = ref_fine[1][0].to(torch.int16)
 
         # --- motion compensation ONCE at selected-cell granularity (the
         # interpolation is translation-invariant, so MCing a leaf equals
         # MCing its 8x8 luma / 4x4 chroma cells with the same MV) -------
         mv32 = mv_sel.to(torch.int32)
 
-        def mc_one(plane_pad, chroma, bs2, pad2):
-            pt, r0, c0 = _gather_mc_patch(plane_pad, mv32, bs2, pad2, chroma)
-            return _unblock(_interp_patch(pt, r0, c0, bs2, bd, filt))
+        def mc_one(pidx, chroma, bs2, pad2):
+            # compound reuses ref0's patch gather AND its convolution
+            # (both=True): regular + CONV_BUF outputs from one pass
+            pt, r0, c0 = _gather_mc_patch(padded[0][pidx], mv32, bs2, pad2,
+                                          chroma)
+            if compound:
+                out, m0 = _interp_patch(pt, r0, c0, bs2, bd, filt, both=True)
+            else:
+                out = _interp_patch(pt, r0, c0, bs2, bd, filt)
+            if nrefs == 2:
+                p1 = _mc_patch(padded[1][pidx], mv32, bs2, pad2, chroma, bd,
+                               filt=filt)
+                out = torch.where((ref8 == 1)[..., None, None], p1, out)
+            if compound:
+                m1 = _mc_patch(padded[1][pidx], mv2_sel.to(torch.int32), bs2,
+                               pad2, chroma, bd, jnt=True, filt=filt)
+                out = torch.where((ref8 == 2)[..., None, None],
+                                  MC.jnt_average(m0, m1, bd), out)
+            return _unblock(out)
 
-        pred_y_pl = mc_one(py_pad, False, 8, pad)
-        pred_u_pl = mc_one(pu_pad, True, 4, cpad)
-        pred_v_pl = mc_one(pv_pad, True, 4, cpad)
+        pred_y_pl = mc_one(0, False, 8, pad)
+        pred_u_pl = mc_one(1, True, 4, cpad)
+        pred_v_pl = mc_one(2, True, 4, cpad)
 
         # --- residual coding at every size against the selected pred ----
         levels, rec_planes = {}, {}
@@ -564,9 +696,13 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         repad = lambda core, like: MC.edge_pad(
             core, 0, like.shape[0] - core.shape[0], 0,
             like.shape[1] - core.shape[1]).to(torch.uint8)
-        return (size8, mv_sel, ly_pack, lu_pack, lv_pack,
-                repad(cy, rec_y), repad(cu, rec_u), repad(cv, rec_v),
-                idx_sb)
+        out = (size8, mv_sel, ly_pack, lu_pack, lv_pack,
+               repad(cy, rec_y), repad(cu, rec_u), repad(cv, rec_v), idx_sb)
+        if nrefs >= 2:
+            out = out + (ref8,)
+        if compound:
+            out = out + (mv2_sel,)
+        return out
 
     return step
 
@@ -593,3 +729,20 @@ def build_p_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
     return p_frame_step(ph, pw, mi_rows, mi_cols, search=search, bd=bd,
                         rdo=rdo, txs=txs, filt=filt, gm=gm, lr=lr,
                         rect=rect, filters=filters, aq=aq, cdef=cdef)
+
+
+@functools.lru_cache(maxsize=6)
+def build_b_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
+                              search: int = SEARCH_RANGE,
+                              cdef: bool = False, compound: bool = False,
+                              bd: int = 8, rdo: bool = False,
+                              txs: bool = False, filt: int = 0,
+                              lr: bool = False, rect: bool = False,
+                              nrefs: int = 2, aq: bool = False):
+    """The two-reference step for one geometry: step(sy, su, sv,
+    r0_y, r0_u, r0_v, r1_y, r1_u, r1_v, qindex, lf_y, lf_u, lf_v);
+    compound=True adds the COMPOUND_AVERAGE of (ref0, ref1) (counterpart
+    of the reference's jitted build_b_frame_encoder_dyn)."""
+    return p_frame_step(ph, pw, mi_rows, mi_cols, search=search, nrefs=nrefs,
+                        compound=compound, bd=bd, rdo=rdo, txs=txs,
+                        filt=filt, lr=lr, rect=rect, aq=aq, cdef=cdef)

@@ -2,13 +2,16 @@
 
 The encoder has no weights.  What one frame leaves to the next is the
 reference picture — the three recon planes, edge-padded to the 64-padded
-inter geometry and kept on the device — plus per-stream decisions made
-on the host (the interpolation filter, the previous source for the
-global-motion estimate).  Each packet's entropy coding starts from a
-fresh FrameContext, so no coder state crosses frames.
+inter geometry and kept on the device — or, for hierarchical B, a slot
+book of such pictures (display index -> planes, decoder slot, remaining
+uses), plus per-stream decisions made on the host (the interpolation
+filter, the previous source for the global-motion estimate).  Each
+packet's entropy coding starts from a fresh FrameContext, so no coder
+state crosses frames.
 
 These helpers turn the JAX reference's state into the port's, so a test
-can start ``p_frame_step`` of both packages from the same reference.
+can start ``p_frame_step`` of both packages (one or two references) from
+the same reference pictures.
 """
 
 from __future__ import annotations
@@ -46,3 +49,14 @@ def config_from_reference(fields: dict) -> EncoderConfig:
     if "intra_modes" in kw:
         kw["intra_modes"] = tuple(kw["intra_modes"])
     return EncoderConfig(**kw)
+
+
+def store_from_reference(store: dict, device="cuda") -> dict:
+    """The hierarchical-B slot book of the reference encoder
+    (``Encoder._store``: display index -> {"dev": 64-padded uint8 planes,
+    "slot": reference slot, "pins": uses left}) as the port's, with the
+    planes as the port's device tensors."""
+    return {int(d): {"dev": refs_from_numpy(*(np.asarray(p) for p in e["dev"]),
+                                            device=device),
+                     "slot": e["slot"], "pins": int(e["pins"])}
+            for d, e in store.items()}

@@ -156,3 +156,105 @@ def test_encoder_card_equals_cpu(cuda):
     assert [p.payload for p in card] == [p.payload for p in cpu]
     for a, b in zip(card, cpu):
         assert np.array_equal(a.recon.y, b.recon.y)
+
+
+def _hierb_refs(device, w=192, h=128):
+    """Source and two reference pictures of a drifting synthetic clip,
+    64-padded (the B step's inputs)."""
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline.intra_encoder import pad_plane
+    base = synthetic_frame(w, h, seed=3)
+    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
+    out = []
+    for i in (0, 2, 4):                 # fwd ref, source, bwd ref
+        planes = (np.roll(base.y, (i, 2 * i), (0, 1)),
+                  np.roll(base.u, (i // 2, i), (0, 1)),
+                  np.roll(base.v, (i // 2, -i), (0, 1)))
+        out.append(tuple(
+            T_(np.ascontiguousarray(pad_plane(p, ph >> (k > 0),
+                                              pw >> (k > 0)))).to(device)
+            for k, p in enumerate(planes)))
+    return ph, pw, out
+
+
+@pytest.mark.cuda
+def test_b_step_card_equals_cpu(cuda):
+    """The two-reference compound step at 192x128: 13 gather launches,
+    every output equal to the CPU run's."""
+    from svt_av1_tpu_torch.pipeline import inter_encoder as TPE
+    ph, pw, (r0, src, r1) = _hierb_refs(cuda)
+    step = TPE.build_b_frame_encoder_dyn(ph, pw, 32, 48, cdef=True,
+                                         compound=True)
+    before = TG.gather_tiles.launches
+    card = step(*src, *r0, *r1, 166, 8, 4, 4)
+    torch.cuda.synchronize()
+    assert TG.gather_tiles.launches - before == 13
+    cpu = step(*(p.cpu() for p in src), *(p.cpu() for p in r0),
+               *(p.cpu() for p in r1), 166, 8, 4, 4)
+    assert len(card) == len(cpu) == 11
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+# (plane dtype, bs, pad, reach, halo, off) of the B frame's grid sites at
+# the 1080p geometry (1088x1920 padded: 136x240 cells)
+B1080_SITES = [
+    (np.int32, 8, 17, 16, 8, -4),     # merged-cell refine, per reference
+    (np.int32, 8, 17, 17, 7, -3),     # MC patch, luma (x3)
+    (np.int32, 4, 9, 9, 7, -3),       # MC patch, chroma (x6)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bs,pad,reach,halo,off", B1080_SITES)
+def test_kernel_equals_plain_at_1080p_b_sites(cuda, dtype, bs, pad, reach,
+                                              halo, off):
+    rng = np.random.default_rng(100 + bs + halo)
+    nbh, nbw = 136, 240
+    plane = rng.integers(0, 256, (nbh * bs + 2 * pad + 7,
+                                  nbw * bs + 2 * pad + 7)).astype(dtype)
+    mv_r = rng.integers(-reach, reach + 1, (nbh, nbw)).astype(np.int32)
+    mv_c = rng.integers(-reach, reach + 1, (nbh, nbw)).astype(np.int32)
+    got = TG.gather_blocks_grid(T_(plane).to(cuda), T_(mv_r).to(cuda),
+                                T_(mv_c).to(cuda), bs, pad, reach,
+                                halo=halo, off=off)
+    want = TG.gather_blocks_grid(T_(plane), T_(mv_r), T_(mv_c), bs, pad,
+                                 reach, halo=halo, off=off)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_warp_by_centers_equals_plain_at_1080p_mirrored_centers(cuda):
+    """The ME warp of both references at 1080p: ref0's HME centers and
+    the backward reference's mirrored, clipped ones."""
+    from svt_av1_tpu_torch.ops import mc as TMC
+    from svt_av1_tpu_torch.ops import me as TME
+    rng = np.random.default_rng(5)
+    ref = T_(rng.integers(0, 256, (1088, 1920)).astype(np.uint8))
+    cen = T_(rng.integers(-13, 14, (34, 60, 2)).astype(np.int32))
+    ref_pad = TMC.edge_pad(ref, 16, 16, 16, 16)
+    for c in (cen, torch.clamp(-cen, -13, 13)):
+        got = TME.warp_by_centers(ref_pad.to(cuda), c.to(cuda), 32, 16)
+        assert torch.equal(got.cpu(), TME.warp_by_centers(ref_pad, c, 32, 16))
+
+
+@pytest.mark.cuda
+def test_hierb_encoder_card_equals_cpu(cuda):
+    from svt_av1_tpu_torch import EncoderConfig
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    cfg = EncoderConfig(width=136, height=72, qp=36, intra_period=-1,
+                        pred_structure=2, hierarchical_levels=2,
+                        scene_change_detection=False, recon_output=True)
+    frames = [synthetic_frame(136, 72, seed=i) for i in range(6)]
+    before = TG.gather_tiles.launches
+    card = list(Encoder(cfg, device=cuda).encode_all(frames))
+    # two base P frames (4 and 5) at 5 launches, three B frames at 13
+    assert TG.gather_tiles.launches - before == 2 * 5 + 3 * 13
+    cpu = list(Encoder(cfg, device="cpu").encode_all(frames))
+    assert len(card) == 11
+    assert [p.payload for p in card] == [p.payload for p in cpu]
+    for a, b in zip(card, cpu):
+        assert (a.recon is None) == (b.recon is None)
+        if a.recon is not None:
+            assert np.array_equal(a.recon.y, b.recon.y)

@@ -21,7 +21,6 @@ LDP = dict(width=128, height=64, intra_period=-1, pred_structure=0,
 
 GATES = [
     ("low-delay B", dict(pred_structure=1)),
-    ("hierarchical B", dict(pred_structure=2)),
     ("RD presets", dict(enc_mode=7)),
     ("multi_ref=1", dict(multi_ref=1)),
     ("bit_depth=10", dict(bit_depth=10)),
@@ -49,7 +48,10 @@ def test_unsupported_config_raises_by_name(label, extra):
                                    dict(enable_global_motion=False),
                                    dict(interp_filter=2),
                                    dict(enable_cdef=False,
-                                        enable_deblocking=False)])
+                                        enable_deblocking=False),
+                                   dict(pred_structure=2, compound_mode=0),
+                                   dict(pred_structure=2, compound_mode=1,
+                                        hierarchical_levels=2)])
 def test_slice_configs_pass(extra):
     check_slice(EncoderConfig(**{**LDP, **extra}))
 
@@ -58,8 +60,8 @@ def test_default_config_is_all_intra_and_allowed():
     check_slice(EncoderConfig(width=64, height=64))
 
 
-@pytest.mark.parametrize("kw", [dict(rdo=True), dict(nrefs=2),
-                                dict(compound=True), dict(bd=10),
+@pytest.mark.parametrize("kw", [dict(rdo=True), dict(nrefs=3),
+                                dict(compound=True, nrefs=1), dict(bd=10),
                                 dict(lr=True), dict(aq=True)])
 def test_p_frame_step_refuses_unported_variants(kw):
     with pytest.raises(NotImplementedError):

@@ -3,8 +3,9 @@
 A subprocess drops every jax / jaxlib / svt_av1_tpu module (the test
 environment may preload jax at interpreter start), installs an import
 hook that refuses them, imports every module of svt_av1_tpu_torch and
-chip_smoke (without running it), and encodes a 64x64 IPPP clip on the
-CPU end to end."""
+chip_smoke (without running it), and encodes a 64x64 IPPP clip and a
+64x64 hierarchical-B clip with compound prediction on the CPU end to
+end."""
 
 import subprocess
 import sys
@@ -53,6 +54,12 @@ pkts = list(Encoder(cfg, device="cpu").encode_all(
     [synthetic_frame(64, 64, seed=i) for i in range(3)]))
 assert len(pkts) == 3 and pkts[0].is_keyframe
 assert all(len(p.payload) > 0 for p in pkts)
+hier = list(Encoder(cfg.replace(pred_structure=2, hierarchical_levels=1),
+                    device="cpu").encode_all(
+    [synthetic_frame(64, 64, seed=i) for i in range(4)]))
+assert [(p.display_idx, p.show) for p in hier] == [
+    (0, True), (2, False), (1, False), (1, True), (2, True), (3, False),
+    (3, True)]
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names), "packets", [len(p.payload) for p in pkts])

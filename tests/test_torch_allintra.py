@@ -5,6 +5,7 @@ byte-identical."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 pytest.importorskip("jax")
 
 from svt_av1_tpu import EncoderConfig as JConfig  # noqa: E402

@@ -358,25 +358,6 @@ def main_path(torch, G, svt, cfg_kw):
     return pkts, secs, launches
 
 
-def moving_clip(w: int, h: int, n: int):
-    """Moving synthetic content: a textured base that drifts, plus a
-    moving local patch, so ME has real work and the B frames' two
-    references differ."""
-    import numpy as np
-    from svt_av1_tpu_torch.io.yuv import synthetic_frame
-    base = synthetic_frame(w, h, seed=7)
-    frames = []
-    for i in range(n):
-        f = synthetic_frame(w, h, seed=7)
-        f.y[:] = np.roll(base.y, (2 * i, 3 * i), (0, 1))
-        f.u[:] = np.roll(base.u, (i, i), (0, 1))
-        f.v[:] = np.roll(base.v, (i, -i), (0, 1))
-        yy, xx = (17 * i) % max(1, h - 64), (29 * i) % max(1, w - 64)
-        f.y[yy: yy + 48, xx: xx + 48] = f.y[yy: yy + 48, xx: xx + 48] // 2 + 64
-        frames.append(f)
-    return frames
-
-
 def hierb_path(torch, G, svt, cfg_kw):
     """1080p hier-B through the user entry points: a keyframe, then one
     mini-GOP sent frame by frame and flushed.  Returns (TUs in decode
@@ -384,8 +365,9 @@ def hierb_path(torch, G, svt, cfg_kw):
     frame, gather launches during the run).  Each coded frame's time
     (device step + host entropy) is read around Encoder._dispatch_code,
     with the card synchronised."""
+    from svt_av1_tpu_torch.io.yuv import synthetic_clip
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
-    frames = moving_clip(W1080, H1080, N_HIERB)
+    frames = synthetic_clip(W1080, H1080, N_HIERB)
     enc = Encoder(svt.EncoderConfig(**cfg_kw), device="cuda")
     code = enc._dispatch_code
     secs = {}

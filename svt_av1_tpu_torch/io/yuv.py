@@ -176,3 +176,21 @@ def synthetic_frame(width: int, height: int, seed: int = 0,
     v = np.clip((128 + 30 * np.cos(np.mgrid[0:ch, 0:cw][0] / 13.0 - seed))
                 * sc, 0, hi).astype(px)
     return Frame(y, u, v)
+
+
+def synthetic_clip(width: int, height: int, n: int) -> list:
+    """Moving synthetic content: a textured base that drifts, plus a
+    moving local patch that breaks pure global motion, so ME has real
+    work and a B frame's two references differ."""
+    base = synthetic_frame(width, height, seed=7)
+    frames = []
+    for i in range(n):
+        f = synthetic_frame(width, height, seed=7)
+        f.y[:] = np.roll(base.y, (2 * i, 3 * i), (0, 1))
+        f.u[:] = np.roll(base.u, (i, i), (0, 1))
+        f.v[:] = np.roll(base.v, (i, -i), (0, 1))
+        yy = (17 * i) % max(1, height - 64)
+        xx = (29 * i) % max(1, width - 64)
+        f.y[yy: yy + 48, xx: xx + 48] = f.y[yy: yy + 48, xx: xx + 48] // 2 + 64
+        frames.append(f)
+    return frames

@@ -733,16 +733,11 @@ def build_p_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
 
 @functools.lru_cache(maxsize=6)
 def build_b_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
-                              search: int = SEARCH_RANGE,
                               cdef: bool = False, compound: bool = False,
-                              bd: int = 8, rdo: bool = False,
-                              txs: bool = False, filt: int = 0,
-                              lr: bool = False, rect: bool = False,
-                              nrefs: int = 2, aq: bool = False):
+                              bd: int = 8, filt: int = 0):
     """The two-reference step for one geometry: step(sy, su, sv,
     r0_y, r0_u, r0_v, r1_y, r1_u, r1_v, qindex, lf_y, lf_u, lf_v);
     compound=True adds the COMPOUND_AVERAGE of (ref0, ref1) (counterpart
     of the reference's jitted build_b_frame_encoder_dyn)."""
-    return p_frame_step(ph, pw, mi_rows, mi_cols, search=search, nrefs=nrefs,
-                        compound=compound, bd=bd, rdo=rdo, txs=txs,
-                        filt=filt, lr=lr, rect=rect, aq=aq, cdef=cdef)
+    return p_frame_step(ph, pw, mi_rows, mi_cols, nrefs=2, compound=compound,
+                        bd=bd, filt=filt, cdef=cdef)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_parity import assert_same_tus  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -106,15 +107,7 @@ def test_hierb_tus_byte_identical_in_decode_order(reference_run, port_run):
     want, got = reference_run[1], port_run
     # 12 coded TUs (1 key + 8 + 3) and 11 show-existing TUs
     assert len(got) == len(want) == 2 * N - 1
-    for i, (a, b) in enumerate(zip(want, got)):
-        assert a.payload == b.payload, f"TU {i}"
-        assert (a.pts, a.show, a.display_idx, a.is_keyframe) == \
-            (b.pts, b.show, b.display_idx, b.is_keyframe), f"TU {i}"
-        assert (a.recon is None) == (b.recon is None)
-        if a.recon is not None:
-            for p in ("y", "u", "v"):
-                assert np.array_equal(getattr(a.recon, p),
-                                      getattr(b.recon, p)), f"TU {i} {p}"
+    assert_same_tus(want, got)
     coded = [p for p in got if p.recon is not None]
     assert [p.display_idx for p in coded] == [0, 8, 4, 2, 1, 3, 6, 5, 7,
                                               11, 9, 10]
@@ -149,13 +142,6 @@ def test_hierb_levels2_truncated_byte_identical(reference_run):
     want = list(JEncoder(JConfig(**kw)).encode_all(frames))
     got = list(Encoder(EncoderConfig(**kw), device="cpu").encode_all(frames))
     assert len(got) == len(want) == 11
-    for i, (a, b) in enumerate(zip(want, got)):
-        assert a.payload == b.payload, f"TU {i}"
-        assert (a.pts, a.show, a.display_idx) == \
-            (b.pts, b.show, b.display_idx), f"TU {i}"
-        if a.recon is not None:
-            for p in ("y", "u", "v"):
-                assert np.array_equal(getattr(a.recon, p),
-                                      getattr(b.recon, p)), f"TU {i} {p}"
+    assert_same_tus(want, got)
     coded = [p for p in got if p.recon is not None]
     assert [p.display_idx for p in coded] == [0, 4, 2, 1, 3, 5]

@@ -3,10 +3,10 @@
 backward reference per cell): TUs must equal svt_av1_tpu's byte for
 byte in decode order, with equal recon, and no cell is compound."""
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_parity import assert_same_tus  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 pytest.importorskip("jax")
 
@@ -27,14 +27,7 @@ def test_hierb_compound_off_byte_identical():
     want = list(JEncoder(JConfig(**kw)).encode_all(frames))
     got = list(Encoder(EncoderConfig(**kw), device="cpu").encode_all(frames))
     assert len(got) == len(want) == 17
-    for i, (a, b) in enumerate(zip(want, got)):
-        assert a.payload == b.payload, f"TU {i}"
-        assert (a.pts, a.show, a.display_idx) == \
-            (b.pts, b.show, b.display_idx), f"TU {i}"
-        if a.recon is not None:
-            for p in ("y", "u", "v"):
-                assert np.array_equal(getattr(a.recon, p),
-                                      getattr(b.recon, p)), f"TU {i} {p}"
+    assert_same_tus(want, got)
     coded = [p for p in got if p.recon is not None]
     assert [p.display_idx for p in coded] == [0, 8, 4, 2, 1, 3, 6, 5, 7]
     assert [p.compound_cells for p in coded] == [None, None] + [0] * 7

@@ -26,11 +26,22 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 coded and 8 show-existing TUs; the gather must launch 5
                 times for the base P frame and 13 per B frame, and the
                 B frames must hold compound cells;
-  6. parity   — a 320x192 IPPP clip (1 keyframe + 2 P) and a 192x128
-                hier-B clip (levels 2, 6 frames: a truncated span at
-                flush) encoded on the card and on the CPU must give
-                byte-identical TUs;
-  7. timing   — at each call site, for both designs, one torch.take
+  6. main-LDB — the 1080p low-delay-B encode (qp 40, preset 8,
+                pred_structure=1, deblock + CDEF, scene-change detection
+                on): a keyframe and 7 LAST + GOLDEN frames of the moving
+                clip through send_picture/get_packet; every frame after
+                the keyframe must be an inter frame (the clip has no
+                cut), and the gather must launch 10 times per LDB frame;
+  7. parity   — encoded on the card and on the CPU, each must give
+                byte-identical TUs and equal recon: a 320x192 IPPP clip
+                (1 keyframe + 2 P), a 192x128 hier-B clip (levels 2, 6
+                frames: a truncated span at flush), a 320x192 LDB clip,
+                and a 320x192 IPPP clip with a 2x2 tile grid, a 3-frame
+                look-ahead window and push_qp overrides; and the port's
+                CLI (--pred-struct 1 --tiles-log2 1 --qp-file) run in
+                this process at --device cuda and at --device cpu on the
+                same synthetic input must write byte-identical IVF files;
+  8. timing   — at each call site, for both designs, one torch.take
                 call and the plain version: event ms (CUDA events around
                 20 back-to-back calls) and host us per call (perf_counter
                 around 200 calls issued without a synchronise) at every
@@ -41,12 +52,13 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  For gather_tiles, launches counts the
-main-path launches of phases 4 and 5; ms, device_ms, host_us, plain_ms,
-bound_ms and library_ms are sums over the six launches of one 720p P
-frame, and "per_1080p_b_frame" holds the same sums over the 13 launches
-of one 1080p B frame.  --out DIR also writes the per-shape and per-frame
-numbers to DIR/chip_smoke.json.  Imports neither JAX nor the JAX
-package.
+main-path launches of phases 4, 5 and 6; ms, device_ms, host_us,
+plain_ms, bound_ms and library_ms are sums over the six launches of one
+720p P frame, "per_1080p_b_frame" holds the same sums over the 13
+launches of one 1080p B frame and "per_1080p_ldb_frame" over the 10 of
+one 1080p LDB frame (the B frame's sites without the compound
+patches).  --out DIR also writes the per-shape and per-frame numbers to
+DIR/chip_smoke.json.  Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -73,6 +86,12 @@ P720 = {"warp_by_centers": 1, "globalmv_copy": 1, "cell_refine": 1,
 B1080 = {"warp_by_centers": 2, "cell_refine": 2, "mc_patch_luma": 3,
          "mc_patch_chroma": 6}
 BASE_P_LAUNCHES = 5
+# a low-delay-B frame: the two-reference step without compound
+# prediction (ME warp and cell refine per reference, and per plane the
+# LAST patch and the GOLDEN single-ref patch), at the B frame's shapes
+LDB1080 = {"warp_by_centers": 2, "cell_refine": 2, "mc_patch_luma": 2,
+           "mc_patch_chroma": 4}
+N_LDB = 8
 
 
 def phase(name: str, t0: float) -> None:
@@ -398,12 +417,79 @@ def hierb_path(torch, G, svt, cfg_kw):
     return tus, key_s, secs, launches
 
 
+def ldb_path(torch, G, svt, cfg_kw):
+    """1080p low-delay B through the user entry points, frame by frame.
+    Returns (packets, per-frame seconds, per-frame gather launches)."""
+    from svt_av1_tpu_torch.io.yuv import synthetic_clip
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    frames = synthetic_clip(W1080, H1080, N_LDB)
+    enc = Encoder(svt.EncoderConfig(**cfg_kw), device="cuda")
+    pkts, secs, launches = [], [], []
+    for f in frames:
+        G.gather_tiles.launches = 0
+        t = time.time()
+        enc.send_picture(f)
+        pkt = enc.get_packet()
+        torch.cuda.synchronize()
+        secs.append(time.time() - t)
+        launches.append(G.gather_tiles.launches)
+        pkts.append(pkt)
+    enc.send_picture(None)
+    if enc.get_packet() is not None:
+        raise AssertionError("low-delay-B encoder held back a packet")
+    return pkts, secs, launches
+
+
+def drive(enc, frames, qps=None):
+    """Send frames (each after its push_qp override when qps is given),
+    draining after every send and after the flush; TUs in decode
+    order."""
+    out = []
+    for i, f in enumerate(frames):
+        if qps is not None:
+            enc.push_qp(qps[i] if i < len(qps) else None)
+        enc.send_picture(f)
+        while (p := enc.get_packet()) is not None:
+            out.append(p)
+    enc.flush()
+    while (p := enc.get_packet()) is not None:
+        out.append(p)
+    return out
+
+
+def cli_parity():
+    """The port's CLI in this process at --device cuda and --device cpu
+    on the same synthetic input (low-delay B, a 2-column tile grid, a QP
+    file); the IVF files must be byte-identical.  Returns their size."""
+    from svt_av1_tpu_torch.app import enc_app
+    with tempfile.TemporaryDirectory() as d:
+        qp = Path(d) / "qp.txt"
+        qp.write_text("30\n-1\n45\n20\n")
+        ivf = {}
+        for device in ("cuda", "cpu"):
+            out = Path(d) / f"{device}.ivf"
+            rc = enc_app.main(["-w", "320", "-h", "192", "-q", "40",
+                               "--synthetic", "4", "--intra-period", "-1",
+                               "--pred-struct", "1", "--tiles-log2", "1",
+                               "--qp-file", str(qp), "-b", str(out),
+                               "--device", device])
+            if rc != 0:
+                raise AssertionError(f"enc_app --device {device} exited {rc}")
+            ivf[device] = out.read_bytes()
+    if ivf["cuda"] != ivf["cpu"]:
+        raise AssertionError("CLI: card and CPU IVF files differ")
+    return len(ivf["cuda"])
+
+
 def parity_phase(svt):
-    """Small clips on the card and on the CPU: IPPP at 320x192 and hier-B
+    """Small clips on the card and on the CPU: IPPP at 320x192, hier-B
     at 192x128 (levels 2, 6 frames, so the flush codes a truncated
-    span); TUs must be identical.  Returns the TU byte sizes."""
+    span), LDB at 320x192 and tiled IPPP at 320x192 with look-ahead and
+    push_qp; TUs must be identical.  Returns the TU byte sizes."""
     from svt_av1_tpu_torch.io.yuv import synthetic_frame
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    small = dict(width=320, height=192, qp=40, intra_period=-1,
+                 recon_output=True)
     cases = [
         ("320x192 IPPP", dict(width=320, height=192, qp=40, intra_period=-1,
                               pred_structure=0,
@@ -414,15 +500,21 @@ def parity_phase(svt):
                                 hierarchical_levels=2, compound_mode=1,
                                 scene_change_detection=False,
                                 recon_output=True), 20, 6, 11),
+        ("320x192 LDB", dict(small, pred_structure=1), 30, 4, 4),
+        ("320x192 IPPP, 2x2 tiles, look-ahead 3, push_qp",
+         dict(small, pred_structure=0, tile_columns_log2=1,
+              tile_rows_log2=1, look_ahead_distance=3), 40, 5, 5),
     ]
+    qps = [30, None, 45, 20]
     sizes = {}
     for name, kw, seed, n, n_tus in cases:
         frames = [synthetic_frame(kw["width"], kw["height"], seed=seed + i)
                   for i in range(n)]
         out = {}
         for device in ("cuda", "cpu"):
-            out[device] = list(Encoder(svt.EncoderConfig(**kw),
-                                       device=device).encode_all(frames))
+            out[device] = drive(Encoder(svt.EncoderConfig(**kw),
+                                        device=device), frames,
+                                qps if "push_qp" in name else None)
         if len(out["cuda"]) != n_tus or len(out["cpu"]) != n_tus:
             raise AssertionError(f"{name}: expected {n_tus} TUs")
         for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
@@ -436,6 +528,7 @@ def parity_phase(svt):
                     raise AssertionError(f"{name}: card/CPU recon differ: "
                                          f"TU {i} {p}")
         sizes[name] = [len(p.payload) for p in out["cuda"]]
+    sizes["320x192 CLI LDB, tiles, QP file (IVF bytes)"] = [cli_parity()]
     return sizes
 
 
@@ -551,52 +644,94 @@ def main() -> int:
     phase("main path 1080p hier-B (1 key + base P + 7 B, compound)", t)
 
     t = time.time()
+    ldb_kw = dict(width=W1080, height=H1080, qp=40, intra_period=-1,
+                  pred_structure=1, enable_deblocking=True,
+                  enable_cdef=True, recon_output=False,
+                  scene_change_detection=True, enc_mode=8,
+                  stat_report=True)
+    lpkts, lsecs, lcounts = ldb_path(torch, G, svt, ldb_kw)
+    if len(lpkts) != N_LDB or any(p is None or not p.payload for p in lpkts):
+        raise AssertionError(f"expected {N_LDB} non-empty LDB packets")
+    if not lpkts[0].is_keyframe or any(p.is_keyframe for p in lpkts[1:]):
+        raise AssertionError("expected one keyframe then LDB inter frames "
+                             "(the clip has no scene cut)")
+    if [(p.pts, p.show) for p in lpkts] != [(i, True) for i in range(N_LDB)]:
+        raise AssertionError("LDB packets not shown in order")
+    want_l = sum(LDB1080.values())
+    if lcounts != [0] + [want_l] * (N_LDB - 1):
+        raise AssertionError(f"the LDB path launched the gather kernel "
+                             f"{lcounts} times per frame, not 0 for the "
+                             f"keyframe and {want_l} per LDB frame")
+    ldb_launches = sum(lcounts)
+    l_psnr = [p.psnr[0] for p in lpkts]
+    if not all(25.0 < v < 60.0 for v in l_psnr):
+        raise AssertionError(f"LDB PSNR-Y out of range: {l_psnr}")
+    print(f"  1080p LDB: {N_LDB} packets, "
+          f"{sum(len(p.payload) for p in lpkts)} bytes, gather launches "
+          f"{ldb_launches} ({want_l} per LDB frame)", flush=True)
+    for i, (p, sec) in enumerate(zip(lpkts, lsecs)):
+        print(f"  frame {i} ({'key' if p.is_keyframe else 'LDB'}): "
+              f"{sec * 1e3:.1f} ms, {len(p.payload)} bytes, PSNR-Y "
+              f"{p.psnr[0]:.2f} dB", flush=True)
+    l_mean = sum(lsecs[1:]) / (N_LDB - 1)
+    print(f"  frame ms: key {lsecs[0] * 1e3:.1f}, LDB mean "
+          f"{l_mean * 1e3:.1f} (min {min(lsecs[1:]) * 1e3:.1f}, max "
+          f"{max(lsecs[1:]) * 1e3:.1f})", flush=True)
+    phase("main path 1080p low-delay B (1 key + 7 LDB, scene cuts on)", t)
+
+    t = time.time()
     sizes = parity_phase(svt)
     for name, sz in sizes.items():
-        print(f"  {name} card == CPU, TU bytes {sz}", flush=True)
-    phase("card vs CPU TUs, 320x192 IPPP and 192x128 hier-B", t)
+        print(f"  {name} card == CPU, bytes {sz}", flush=True)
+    phase("card vs CPU: 320x192 IPPP, 192x128 hier-B, 320x192 LDB, tiled "
+          "look-ahead push_qp IPPP, CLI", t)
 
     t = time.time()
     timing_phase(sites, timed)
     phase("gather timings at the 720p P and 1080p B call sites", t)
 
-    def tot(frame, get):
-        """Sum of get(site) over one frame's main-path launches."""
-        main_sites = [s for s in sites
-                      if s["frame"] == frame and s["launches_per_frame"]]
+    def tot(frame, get, per=None):
+        """Sum of get(site) over one frame's main-path launches (per:
+        launches by site name, else the sites' own per-frame counts)."""
+        count = ((lambda s: per.get(s["site"], 0)) if per
+                 else (lambda s: s["launches_per_frame"]))
+        main_sites = [s for s in sites if s["frame"] == frame and count(s)]
         vals = [get(s) for s in main_sites]
         if None in vals:
             return None
-        return sum(v * s["launches_per_frame"]
-                   for v, s in zip(vals, main_sites))
+        return sum(v * count(s) for v, s in zip(vals, main_sites))
 
-    def per_frame(frame):
-        dev_us = tot(frame, lambda s: s["main"]["device_us"])
-        return {"ms": tot(frame, lambda s: s["main"]["ms"]),
+    def per_frame(frame, per=None):
+        dev_us = tot(frame, lambda s: s["main"]["device_us"], per)
+        return {"ms": tot(frame, lambda s: s["main"]["ms"], per),
                 "device_ms": None if dev_us is None else dev_us / 1e3,
-                "host_us": tot(frame, lambda s: s["main"]["host_us"]),
-                "plain_ms": tot(frame, lambda s: s["plain_ms"]),
-                "bound_ms": tot(frame, lambda s: s["bound_ms"]),
-                "library_ms": tot(frame, lambda s: s["take"]["ms"])}
+                "host_us": tot(frame, lambda s: s["main"]["host_us"], per),
+                "plain_ms": tot(frame, lambda s: s["plain_ms"], per),
+                "bound_ms": tot(frame, lambda s: s["bound_ms"], per),
+                "library_ms": tot(frame, lambda s: s["take"]["ms"], per)}
 
     kernels = {"kernels": [{
         "name": "gather_tiles",
         "route": "cuda",
         "source": "svt_av1_tpu_torch/csrc/gather_tiles.cu",
         "replaces": "svt_av1_tpu/ops/gather.py:151",
-        "launches": launches + b_launches,
+        "launches": launches + b_launches + ldb_launches,
         "max_abs_err": max(s["max_abs_err"] for s in sites),
         **per_frame("720p P"), "bound_by": "bytes",
-        "per_1080p_b_frame": per_frame("1080p B")}]}
-    for frame in ("720p P", "1080p B"):
+        "per_1080p_b_frame": per_frame("1080p B"),
+        "per_1080p_ldb_frame": per_frame("1080p B", LDB1080)}]}
+    for label, frame, per in (("720p P", "720p P", None),
+                              ("1080p B", "1080p B", None),
+                              ("1080p LDB", "1080p B", LDB1080)):
         for d in ["main", *(d for d in G.DESIGNS if d != G.MAIN_DESIGN),
                   "take", "plain"]:
-            dv = tot(frame, lambda s: s[d]["device_us"])
-            print(f"  per {frame} frame, {d:6s}: event "
-                  f"{tot(frame, lambda s: s[d]['ms']):.4f} ms, device "
+            dv = tot(frame, lambda s: s[d]["device_us"], per)
+            print(f"  per {label} frame, {d:6s}: event "
+                  f"{tot(frame, lambda s: s[d]['ms'], per):.4f} ms, device "
                   f"{'not measured' if dv is None else f'{dv:.2f} us'}, "
-                  f"host {tot(frame, lambda s: s[d]['host_us']):.2f} us; "
-                  f"bound {tot(frame, lambda s: s['bound_ms']) * 1e3:.2f} us",
+                  f"host {tot(frame, lambda s: s[d]['host_us'], per):.2f} "
+                  f"us; bound "
+                  f"{tot(frame, lambda s: s['bound_ms'], per) * 1e3:.2f} us",
                   flush=True)
     if args.out:
         out = Path(args.out)
@@ -610,6 +745,9 @@ def main() -> int:
                       "tu_bytes": [len(p.payload) for p in tus],
                       "psnr_y": b_psnr, "launches": b_launches,
                       "compound_cells": comp},
+            "ldb": {"frame_s": lsecs,
+                    "packet_bytes": [len(p.payload) for p in lpkts],
+                    "psnr_y": l_psnr, "launches": lcounts},
             "parity_tu_bytes": sizes,
             "kernels": kernels["kernels"],
             "total_s": time.time() - t0}, indent=1))

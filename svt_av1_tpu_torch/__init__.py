@@ -12,7 +12,9 @@ Package map (each module names its counterpart in svt_av1_tpu):
   io/, utils/ Y4M/YUV/IVF I/O, bit writers, native builds
   entropy/    range coder, CDF model, symbol layer, OBUs, C++ coder (copy)
   ops/        transforms, quant, intra, deblock, CDEF, gather, MC, ME
-  pipeline/   intra wavefront, P-frame step, tile writer, Encoder
+  pipeline/   intra wavefront, P/B-frame step, tile writer, GOP planner,
+              look-ahead window, Encoder
+  app/        the encoder CLI (python -m svt_av1_tpu_torch.app.enc_app)
   state       carrying reference state over from the JAX encoder
 """
 

@@ -222,16 +222,18 @@ def check_slice(cfg: EncoderConfig) -> None:
     port does not run yet.
 
     The port covers 8-bit CQP encoding at preset 8: all-intra streams,
-    low-delay-P (IPPP) chains with one reference and global motion, and
-    hierarchical-B random access (``pred_structure=2``, with or without
-    compound prediction), with deblocking and CDEF.  Everything else is
-    refused by name rather than encoded differently from the reference
-    package.
+    low-delay-P (IPPP) chains with one reference and global motion,
+    low-delay B (``pred_structure=1``: LAST + GOLDEN) and hierarchical-B
+    random access (``pred_structure=2``, with or without compound
+    prediction), with deblocking and CDEF, scene-change detection (the
+    flat structures; hier-B ignores it, as the reference package does),
+    look-ahead q offsets (the flat structures) and tiled inter frames.
+    Everything else is refused by name rather than encoded differently
+    from the reference package.
     """
     inter = not cfg.intra_only
+    hier = inter and cfg.pred_structure == PRED_STRUCT_RANDOM_ACCESS
     gates = {
-        "pred_structure=1 (low-delay B)":
-            inter and cfg.pred_structure == PRED_STRUCT_LOW_DELAY_B,
         "enc_mode<8 (RD presets: rdo/txs/rect, multi-ref)": cfg.enc_mode < 8,
         "multi_ref=1": cfg.multi_ref == 1,
         "bit_depth=10": cfg.bit_depth == 10,
@@ -242,12 +244,9 @@ def check_slice(cfg: EncoderConfig) -> None:
         "enable_restoration": bool(cfg.enable_restoration),
         "enable_warped_motion": bool(cfg.enable_warped_motion),
         "screen_content_mode (IBC)": bool(cfg.screen_content_mode),
-        "tiles (tile_columns_log2/tile_rows_log2)":
-            bool(cfg.tile_columns_log2 or cfg.tile_rows_log2),
         "enable_film_grain": bool(cfg.enable_film_grain),
-        "scene_change_detection=True":
-            inter and bool(cfg.scene_change_detection),
-        "look_ahead_distance>0": inter and cfg.look_ahead_distance > 0,
+        "look_ahead_distance>0 with pred_structure=2":
+            hier and cfg.look_ahead_distance > 0,
         "device_batch>1": cfg.device_batch > 1,
         "num_gop_shards>1": cfg.num_gop_shards > 1,
     }

@@ -2,11 +2,14 @@
 
 Port of svt_av1_tpu/pipeline/encoder.py for the slice it covers: 8-bit
 CQP at preset 8 — all-intra streams, low-delay-P (IPPP) chains with one
-reference (``EncoderConfig(intra_period=-1, pred_structure=0,
-scene_change_detection=False)``, with global motion) and hierarchical-B
-random access (``pred_structure=2``, any ``hierarchical_levels``,
-``compound_mode`` 0 or 1), with deblocking and CDEF.  Anything else
-raises ``NotImplementedError`` (config.check_slice).
+reference (``EncoderConfig(intra_period=-1, pred_structure=0)``, with
+global motion), low-delay B (``pred_structure=1``: every frame predicts
+from the previous frame and the keyframe) and hierarchical-B random
+access (``pred_structure=2``, any ``hierarchical_levels``,
+``compound_mode`` 0 or 1), with deblocking and CDEF; scene-change
+keyframes and look-ahead q offsets in the flat structures, per-frame QP
+overrides (``push_qp``), tiled inter frames and checkpoint / restore.
+Anything else raises ``NotImplementedError`` (config.check_slice).
 
 Dataflow per frame:
   host pad  ->  device encode (intra wavefront, or the P / B step:
@@ -14,10 +17,11 @@ Dataflow per frame:
   outputs  ->  host entropy tile (C++ coder, or pipeline.tile)  ->  OBU
   packetization
 
-The encoder is synchronous: IPPP and all-intra frames come out as they
-are sent.  Hierarchical B buffers the frames of a mini-GOP until it is
-full (or until ``flush()`` / ``send_picture(None)`` codes the truncated
-span), then codes it in the reference package's decode order: coded
+The encoder is synchronous: IPPP, low-delay-B and all-intra frames come
+out as they are sent (or, with a look-ahead window, as they leave it).
+Hierarchical B buffers the frames of a mini-GOP until it is full (or
+until ``flush()`` / ``send_picture(None)`` codes the truncated span),
+then codes it in the reference package's decode order: coded
 no-show TUs (``Packet.show=False``, ``pts=-1``) interleaved with the
 small show_existing TUs that display them (``Packet.show=True``,
 ``pts = display_idx``).  Reference planes stay on the device between
@@ -46,6 +50,7 @@ from svt_av1_tpu_torch.pipeline import inter_encoder as PE
 from svt_av1_tpu_torch.pipeline import intra_encoder as IE
 from svt_av1_tpu_torch.pipeline.gop import (CodeStep, layer_qindex,
                                             plan_minigop, plan_pins)
+from svt_av1_tpu_torch.pipeline.lookahead import Lookahead
 from svt_av1_tpu_torch.pipeline.tile import TileWriter
 
 
@@ -91,6 +96,9 @@ class Encoder:
         # hier-B random access needs order hints for ref list semantics
         # and the skip-mode gate (ref Av1GenerateRpsInfo order hints)
         self._hier = config.pred_structure == 2 and not config.intra_only
+        # low-delay B: every frame references the previous frame (LAST)
+        # and the keyframe anchor (GOLDEN), both forward, shown in order
+        self._ldb = config.pred_structure == 1 and not config.intra_only
         self.seq = O.SequenceParams(
             config.width, config.height, config.bit_depth, config.sb_size,
             enable_cdef=config.enable_cdef, enable_order_hint=self._hier,
@@ -108,12 +116,92 @@ class Encoder:
         self._send_idx = 0
         self._packets: list[Packet] = []
         self._ref_dev = None       # device recon planes of the last frame
+        self._qp_queue: list = []  # push_qp overrides, in coding order
+        # scene-change detector state: the previous 1/8-scale luma and
+        # the running mean of its frame-to-frame differences
+        self._scd_prev = None
+        self._scd_avg = None
+        # low-delay B references: (device planes, slot) of the last coded
+        # frame and of the keyframe
+        self._ldb_last = None
+        self._ldb_golden = None
         if self._hier:
             self._store: dict = {}         # disp -> {dev, slot, pins}
             self._free_slots = list(range(8))
             self._anchor: Optional[int] = None
             self._buf: list = []           # (disp, Frame) since anchor
             self._gop_n = 1 << config.hierarchical_levels
+        # look-ahead window (flat structures; hier-B's mini-GOP buffer is
+        # its own reordering window)
+        self._la = None
+        if (config.look_ahead_distance > 0 and not config.intra_only
+                and not self._hier):
+            self._la = Lookahead(config.look_ahead_distance)
+
+    def push_qp(self, qp: Optional[int]) -> None:
+        """Queue a per-frame QP override, consumed in coding order (ref
+        use_qp_file / SendQpOnTheFly).  None keeps the configured q for
+        that frame."""
+        self._qp_queue.append(qp)
+
+    def _frame_qindex(self, is_key: bool) -> int:
+        """The frame's base qindex: the next push_qp override, else the
+        configured qp (CQP: is_key does not change it)."""
+        if self._qp_queue:
+            override = self._qp_queue.pop(0)
+            if override is not None:
+                return _qp_to_qindex(int(override))
+        return _qp_to_qindex(self.cfg.qp)
+
+    def _scene_cut(self, frame: Frame) -> bool:
+        """Scene-change test on a 1/8-scale luma: the mean absolute
+        difference to the previous source against a running mean of it
+        (ref picture_decision_kernel scene-change windows, reduced as in
+        the reference package)."""
+        if not self.cfg.scene_change_detection:
+            return False
+        small = frame.y[::8, ::8].astype(np.int32)
+        prev = self._scd_prev
+        self._scd_prev = small
+        if prev is None or prev.shape != small.shape:
+            return False
+        mad = float(np.abs(small - prev).mean())
+        avg = self._scd_avg
+        self._scd_avg = mad if avg is None else 0.75 * avg + 0.25 * mad
+        if avg is None:
+            return mad > 40.0
+        return mad > max(25.0, 4.0 * avg)
+
+    # -- checkpoint / resume: references never cross a keyframe, so a
+    # resume restarts at the next GOP boundary -----------------------------
+    def checkpoint(self) -> dict:
+        """Snapshot the stream state.  Take it with every packet drained
+        (and a hier-B mini-GOP flushed); a resume restarts with a
+        keyframe, so a mid-GOP resume point stays decodable."""
+        if self._packets:
+            raise RuntimeError("drain packets before checkpointing")
+        if self._hier and self._buf:
+            raise RuntimeError("flush the mini-GOP first")
+        # frame_idx: the reference's count of coded frames, which equals
+        # send_idx in every structure the port runs
+        return {"send_idx": self._send_idx, "frame_idx": self._send_idx,
+                "scd_avg": self._scd_avg}
+
+    def restore(self, st: dict) -> None:
+        """Resume from a checkpoint() snapshot, in a fresh encoder (e.g.
+        a new process after a host loss).  As in the reference package,
+        the IPPP and hier-B references are dropped (the next frame is a
+        keyframe), the low-delay-B ones are not."""
+        self._send_idx = st["send_idx"]
+        if st.get("scd_avg") is not None:
+            self._scd_avg = st["scd_avg"]
+        self._scd_prev = None
+        self._ref_dev = None
+        if self._hier:
+            self._store = {}
+            self._free_slots = list(range(8))
+            self._anchor = None
+            self._buf = []
 
     # -- ref eb_svt_enc_stream_header ------------------------------------------
     def stream_header(self) -> bytes:
@@ -121,24 +209,40 @@ class Encoder:
 
     # -- ref eb_svt_enc_send_picture ---------------------------------------------
     def send_picture(self, frame: Optional[Frame]) -> None:
-        """Encode the picture (IPPP / all-intra: its packet is then ready
-        for get_packet; hier-B: buffered until its mini-GOP is full).
+        """Encode the picture (IPPP / low-delay B / all-intra: its packet
+        is then ready for get_packet, or once it leaves the look-ahead
+        window; hier-B: buffered until its mini-GOP is full).
         send_picture(None) signals end-of-stream and flushes any buffered
-        mini-GOP."""
+        frames."""
         if frame is None:
             self.flush()
             return
+        self._send_inner(frame)
+
+    def _send_inner(self, frame: Frame) -> None:
         if self._hier:
             self._hier_send(frame)
+        elif self._la is not None:
+            for f, q_off in self._la.push(frame):
+                self._send_flat(f, q_off)
         else:
-            self._dispatch_one(frame)
+            self._send_flat(frame, 0)
+
+    def _send_flat(self, frame: Frame, q_off: int) -> None:
+        if self._ldb:
+            self._ldb_send(frame, q_off)
+        else:
+            self._dispatch_one(frame, q_off)
 
     def flush(self) -> None:
         """End-of-stream: code any buffered partial mini-GOP (truncated
         dyadic structure, like the reference's incomplete mini-GOP
-        handling in picture decision)."""
+        handling in picture decision) and drain the look-ahead window."""
         if self._hier and self._buf:
             self._dispatch_span()
+        if self._la is not None:
+            for f, q_off in self._la.flush():
+                self._send_flat(f, q_off)
 
     # -- hierarchical-B scheduling (ref picture_decision_kernel) ---------------
     def _hier_send(self, frame: Frame) -> None:
@@ -165,7 +269,7 @@ class Encoder:
     def _code_key_anchor(self, disp: int, frame: Frame) -> None:
         """Shown keyframe: decoder-side it refreshes every slot, so the
         slot book restarts with the keyframe in slot 0."""
-        qindex = self._frame_qindex()
+        qindex = self._frame_qindex(True)
         dev, planes = self._intra_dispatch(frame, qindex)
         self._store = {disp: {"dev": planes, "slot": 0, "pins": 1}}
         self._free_slots = list(range(1, 8))
@@ -198,7 +302,8 @@ class Encoder:
         self._unpin(lo)                    # release the old anchor pin
         for step in steps:
             if isinstance(step, CodeStep):
-                q = layer_qindex(self._frame_qindex(), step.layer)
+                q = layer_qindex(self._frame_qindex(False), step.layer)
+                q = max(1, min(255, q))
                 self._dispatch_code(step, frames[step.disp], q,
                                     pending_pins.pop(step.disp, 0))
                 self._unpin(step.fwd)
@@ -247,7 +352,7 @@ class Encoder:
         fs, bs = fwd["slot"], bwd["slot"]
         fh = self._hint(step.fwd)
         bh = fh if step.bwd is None else self._hint(step.bwd)
-        meta = {"nrefs": nrefs, "compound": compound,
+        meta = {"nrefs": nrefs, "compound": compound, "show": False,
                 "ref_types": (1, 7),              # LAST, ALTREF
                 "order_hint": self._hint(step.disp),
                 "refresh": 1 << slot,
@@ -266,9 +371,6 @@ class Encoder:
         if p == -1:
             return idx == 0
         return idx % (p + 1) == 0
-
-    def _frame_qindex(self) -> int:
-        return _qp_to_qindex(self.cfg.qp)
 
     @property
     def _geometry(self):
@@ -308,13 +410,60 @@ class Encoder:
                 AN.analyze(frame.y), qindex, self.cfg.bit_depth)
         return self._interp_filt
 
-    def _dispatch_one(self, frame: Frame) -> None:
-        """Keyframes via the wavefront intra path, P frames via the
-        bulk-parallel inter path; recon planes stay on the device between
-        frames."""
+    # -- low-delay B (ref EB_PRED_LOW_DELAY_B) -------------------------------
+    def _ldb_send(self, frame: Frame, q_off: int = 0) -> None:
+        """Code one low-delay-B frame, shown at once: a keyframe (period
+        or scene cut) restarts both references in slot 0; any other
+        frame runs the two-reference step without compound prediction
+        against LAST (the previous frame) and GOLDEN (the keyframe), and
+        takes slot 1, or 2 when LAST sits in slot 1."""
+        d = self._send_idx
+        self._send_idx += 1
+        key = self._is_key(d) or self._scene_cut(frame)
+        qindex = self._frame_qindex(key)
+        if not key:
+            qindex = max(1, min(255, qindex + q_off))
+        if key or self._ldb_last is None:
+            dev, planes = self._intra_dispatch(frame, qindex)
+            self._ldb_golden = (planes, 0)      # (device planes, slot)
+            self._ldb_last = (planes, 0)
+            pkt = self._make_packet(frame, dev, qindex)
+            pkt.pts = pkt.display_idx = d
+            self._packets.append(pkt)
+            return
+        cfg = self.cfg
+        _, _, ph64, pw64 = self._geometry
+        sy, su, sv = self._upload_src(frame)
+        lvls = self._lf_levels(qindex, False)
+        fn = PE.build_b_frame_encoder_dyn(
+            ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
+            cdef=cfg.enable_cdef, compound=False, bd=cfg.bit_depth,
+            filt=self._pick_interp(frame, qindex))
+        out = fn(sy, su, sv, *self._ldb_last[0], *self._ldb_golden[0],
+                 qindex, lvls[0], lvls[2], lvls[3])
+        ls, gs = self._ldb_last[1], self._ldb_golden[1]
+        new_slot = 1 if ls != 1 else 2
+        self._ldb_last = (self._recon_as_ref(out), new_slot)
+        meta = {"nrefs": 2, "compound": False, "show": True,
+                "ref_types": (1, 4),              # LAST, GOLDEN
+                "order_hint": 0,
+                "refresh": 1 << new_slot,
+                "ref_idx": (ls, ls, ls, gs, ls, ls, ls),
+                "ref_hints": (0,) * 7}
+        arrs = [a.cpu().numpy() for a in out]
+        pkt = self._make_inter_packet(frame, arrs, qindex, None, meta)
+        pkt.pts = pkt.display_idx = d
+        self._packets.append(pkt)
+
+    def _dispatch_one(self, frame: Frame, q_off: int = 0) -> None:
+        """IPPP and all-intra: keyframes (period or scene cut) via the
+        wavefront intra path, P frames via the bulk-parallel inter path;
+        recon planes stay on the device between frames."""
         idx = self._send_idx
-        key = self._is_key(idx)
-        qindex = self._frame_qindex()
+        key = self._is_key(idx) or self._scene_cut(frame)
+        qindex = self._frame_qindex(key)
+        if not key:
+            qindex = max(1, min(255, qindex + q_off))
         self._send_idx += 1
         _, _, ph64, pw64 = self._geometry
         if key or self._ref_dev is None:
@@ -397,9 +546,11 @@ class Encoder:
 
     def _make_inter_packet(self, frame: Frame, arrs, qindex: int, gmv,
                            meta=None) -> Packet:
-        """Entropy-code one P / B step's host outputs.  meta (hier-B):
-        the step's reference count and compound flag, its ref types,
-        slots and order hints, and its own order hint and refresh slot."""
+        """Entropy-code one P / B step's host outputs, one tile at a time
+        on the configured tile grid.  meta (hier-B, low-delay B): the
+        step's reference count and compound flag, whether it is shown,
+        its ref types, slots and order hints, and its own order hint and
+        refresh slot."""
         cfg = self.cfg
         nr = meta["nrefs"] if meta else 1
         compound = bool(meta and meta["compound"])
@@ -429,28 +580,43 @@ class Encoder:
         sign_bias = (O.ref_sign_biases(self.seq, meta["order_hint"],
                                        meta["ref_hints"])
                      if meta else None)
-        hm, wm = self.seq.mi_rows, self.seq.mi_cols
-        fc = FrameContext(qindex)
-        tile = None
+        native = None
         if cfg.entropy_backend in ("auto", "cpp"):
-            from svt_av1_tpu_torch.entropy import backend as native
-            if native.available():
-                tile = native.encode_tile_inter_cpp(
-                    fc, hm, wm, qindex, sizes, mv, packs=packs,
-                    cdef_idx=cdef_idx, refs=refs8, sign_bias=sign_bias,
-                    mvs2=mvs2, comp_pair=comp_pair or (1, 7), txty=None,
-                    gm=gm, qmap=None, delta_q_res=0)
+            from svt_av1_tpu_torch.entropy import backend
+            if backend.available():
+                native = backend
             elif cfg.entropy_backend == "cpp":
                 raise RuntimeError("C++ entropy backend unavailable")
-        if tile is None:
-            lv = {bs: tuple(_unpack_levels(packs[p], bs) for p in range(3))
+
+        def code_tile(r01, c01) -> bytes:
+            (r0, r1), (c0, c1) = r01, c01
+            hm, wm = r1 - r0, c1 - c0
+            cells = lambda a: _tile_slice(a, r0, c0, hm, wm, 2, align=8)
+            t_sizes, t_mv, t_refs, t_mv2 = (cells(a) for a in
+                                            (sizes, mv, refs8, mvs2))
+            t_pk = tuple(cells(a) for a in packs)
+            t_ci = _tile_slice(cdef_idx, r0, c0, hm, wm, 16)
+            fc = FrameContext(qindex)
+            if native is not None:
+                return native.encode_tile_inter_cpp(
+                    fc, hm, wm, qindex, t_sizes, t_mv, packs=t_pk,
+                    cdef_idx=t_ci, refs=t_refs, sign_bias=sign_bias,
+                    mvs2=t_mv2, comp_pair=comp_pair or (1, 7), txty=None,
+                    gm=gm, qmap=None, delta_q_res=0)
+            lv = {bs: tuple(_unpack_levels(t_pk[p], bs) for p in range(3))
                   for bs in (8, 16, 32, 64)}
-            tw = TileWriter(fc, hm, wm, qindex, frame_mi=(hm, wm))
-            tile = tw.encode_inter(sizes, mv, lv, cdef_idx=cdef_idx,
-                                   refs=refs8, sign_bias=sign_bias,
-                                   comp_pair=comp_pair, mvs2=mvs2, gm=gm)
+            tw = TileWriter(fc, hm, wm, qindex, lr_off=(r0, c0),
+                            frame_mi=(self.seq.mi_rows, self.seq.mi_cols))
+            return tw.encode_inter(t_sizes, t_mv, lv, cdef_idx=t_ci,
+                                   refs=t_refs, sign_bias=sign_bias,
+                                   comp_pair=comp_pair, mvs2=t_mv2, gm=gm)
+
+        trows, tcols = O.tile_starts(self.seq, cfg.tile_columns_log2,
+                                     cfg.tile_rows_log2)
+        tiles = [code_tile(r01, c01) for r01 in trows for c01 in tcols]
+        tile = tiles[0] if len(tiles) == 1 else O.assemble_tile_group(tiles)
         if meta:
-            hdr = {"show_frame": False,
+            hdr = {"show_frame": meta["show"],
                    "order_hint": meta["order_hint"],
                    "refresh_frame_flags": meta["refresh"],
                    "ref_frame_idx": meta["ref_idx"],
@@ -467,7 +633,8 @@ class Encoder:
             hdr["gm_types"] = tuple(gm_types)
             hdr["gm_trans"] = tuple(gm_trans)
         fp = O.FrameParams(base_q_idx=qindex, delta_q_res=0,
-                           tile_cols_log2=0, tile_rows_log2=0,
+                           tile_cols_log2=cfg.tile_columns_log2,
+                           tile_rows_log2=cfg.tile_rows_log2,
                            frame_type=O.INTER_FRAME,
                            interp_filter=(self._interp_filt or 0),
                            filter_levels=self._lf_levels(qindex, False),
@@ -570,6 +737,20 @@ class Encoder:
             yield pkt
 
 
+def _tile_slice(a, r0: int, c0: int, hm: int, wm: int, mi_cell: int,
+                align: int = 1):
+    """One tile's part of a cell grid whose cells span mi_cell mode-info
+    units: the tile's cell rows and columns from (r0, c0), their counts
+    rounded up to align (into the frame's padded grids) so the entropy
+    coder's nb8 * 8 / bs strides stay exact for every tile width."""
+    if a is None:
+        return None
+    rr, cc = r0 // mi_cell, c0 // mi_cell
+    nr = -(-(-(-hm // mi_cell)) // align) * align
+    nc = -(-(-(-wm // mi_cell)) // align) * align
+    return np.ascontiguousarray(a[rr: rr + nr, cc: cc + nc])
+
+
 def _unpack_levels(packed: np.ndarray, bs: int) -> np.ndarray:
     """Per-cell tile packing [nb8h, nb8w, t, t] -> [gh, gw, bs*t/8,
     bs*t/8] leaf grids for leaf size bs (cells whose selected size
@@ -596,3 +777,25 @@ def _psnr(src: Frame, rec: Frame, bd: int = 8) -> tuple:
         return 99.0 if mse == 0 else 10 * np.log10(peak**2 / mse)
 
     return (p(src.y, rec.y), p(src.u, rec.u), p(src.v, rec.v))
+
+
+# --- functional aliases with the reference API's names ----------------------
+
+def eb_init_handle(config: EncoderConfig, device="cuda") -> Encoder:
+    return Encoder(config, device=device)
+
+
+def eb_svt_enc_set_parameter(handle: Encoder, **kw) -> None:
+    handle.cfg = handle.cfg.replace(**kw)
+
+
+def eb_svt_enc_send_picture(handle: Encoder, frame: Frame) -> None:
+    handle.send_picture(frame)
+
+
+def eb_svt_get_packet(handle: Encoder) -> Optional[Packet]:
+    return handle.get_packet()
+
+
+def eb_svt_get_recon(handle: Encoder) -> Optional[Frame]:
+    return handle.get_recon()

@@ -258,3 +258,45 @@ def test_hierb_encoder_card_equals_cpu(cuda):
         assert (a.recon is None) == (b.recon is None)
         if a.recon is not None:
             assert np.array_equal(a.recon.y, b.recon.y)
+
+
+@pytest.mark.cuda
+def test_ldb_encoder_card_equals_cpu(cuda):
+    """Low-delay B at 192x128: 10 gather launches per LAST + GOLDEN frame
+    (the two-reference step without compound prediction), and the card
+    writes the CPU's TUs and recon."""
+    from svt_av1_tpu_torch import EncoderConfig
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    cfg = EncoderConfig(width=192, height=128, qp=40, intra_period=-1,
+                        pred_structure=1, recon_output=True)
+    frames = [synthetic_frame(192, 128, seed=60 + i) for i in range(4)]
+    before = TG.gather_tiles.launches
+    card = list(Encoder(cfg, device=cuda).encode_all(frames))
+    assert TG.gather_tiles.launches - before == 3 * 10
+    cpu = list(Encoder(cfg, device="cpu").encode_all(frames))
+    assert [p.is_keyframe for p in card] == [True, False, False, False]
+    assert [p.payload for p in card] == [p.payload for p in cpu]
+    for a, b in zip(card, cpu):
+        for p in ("y", "u", "v"):
+            assert np.array_equal(getattr(a.recon, p), getattr(b.recon, p))
+
+
+@pytest.mark.cuda
+def test_cli_card_equals_cpu(cuda, tmp_path):
+    """The port's CLI at --device cuda and --device cpu on the same
+    synthetic input (low-delay B, 2 tile columns, a QP file) writes
+    byte-identical IVF and recon files."""
+    from svt_av1_tpu_torch.app import enc_app
+    (tmp_path / "qp.txt").write_text("30\n-1\n45\n20\n")
+    out = {}
+    for device in ("cuda", "cpu"):
+        ivf, rec = tmp_path / f"{device}.ivf", tmp_path / f"{device}.yuv"
+        assert enc_app.main(["-w", "192", "-h", "128", "-q", "40",
+                             "--synthetic", "4", "--intra-period", "-1",
+                             "--pred-struct", "1", "--tiles-log2", "1",
+                             "--qp-file", str(tmp_path / "qp.txt"),
+                             "-b", str(ivf), "-o", str(rec),
+                             "--device", device]) == 0
+        out[device] = (ivf.read_bytes(), rec.read_bytes())
+    assert out["cuda"] == out["cpu"]

@@ -20,7 +20,6 @@ LDP = dict(width=128, height=64, intra_period=-1, pred_structure=0,
            scene_change_detection=False)
 
 GATES = [
-    ("low-delay B", dict(pred_structure=1)),
     ("RD presets", dict(enc_mode=7)),
     ("multi_ref=1", dict(multi_ref=1)),
     ("bit_depth=10", dict(bit_depth=10)),
@@ -29,10 +28,9 @@ GATES = [
     ("enable_restoration", dict(enable_restoration=True)),
     ("enable_warped_motion", dict(enable_warped_motion=True)),
     ("IBC", dict(screen_content_mode=1)),
-    ("tiles", dict(tile_columns_log2=1)),
     ("enable_film_grain", dict(enable_film_grain=10)),
-    ("scene_change_detection=True", dict(scene_change_detection=True)),
-    ("look_ahead_distance>0", dict(look_ahead_distance=4)),
+    ("look_ahead_distance>0 with pred_structure=2",
+     dict(pred_structure=2, look_ahead_distance=4)),
 ]
 
 
@@ -51,7 +49,13 @@ def test_unsupported_config_raises_by_name(label, extra):
                                         enable_deblocking=False),
                                    dict(pred_structure=2, compound_mode=0),
                                    dict(pred_structure=2, compound_mode=1,
-                                        hierarchical_levels=2)])
+                                        hierarchical_levels=2),
+                                   dict(pred_structure=1),
+                                   dict(tile_columns_log2=1),
+                                   dict(scene_change_detection=True),
+                                   dict(look_ahead_distance=4),
+                                   dict(pred_structure=2,
+                                        scene_change_detection=True)])
 def test_slice_configs_pass(extra):
     check_slice(EncoderConfig(**{**LDP, **extra}))
 

@@ -2,10 +2,11 @@
 
 A subprocess drops every jax / jaxlib / svt_av1_tpu module (the test
 environment may preload jax at interpreter start), installs an import
-hook that refuses them, imports every module of svt_av1_tpu_torch and
-chip_smoke (without running it), and encodes a 64x64 IPPP clip and a
-64x64 hierarchical-B clip with compound prediction on the CPU end to
-end."""
+hook that refuses them, imports every module of svt_av1_tpu_torch (its
+CLI, svt_av1_tpu_torch.app.enc_app, included) and chip_smoke (without
+running it), and encodes a 64x64 IPPP clip, a 64x64 hierarchical-B clip
+with compound prediction and a 64x64 low-delay-B clip (through the
+Encoder and through the CLI) on the CPU end to end."""
 
 import subprocess
 import sys
@@ -43,6 +44,7 @@ names = [m.name for m in pkgutil.walk_packages(svt_av1_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401  (main() is not run)
+assert "svt_av1_tpu_torch.app.enc_app" in names
 
 from svt_av1_tpu_torch import EncoderConfig
 from svt_av1_tpu_torch.io.yuv import synthetic_frame
@@ -60,14 +62,25 @@ hier = list(Encoder(cfg.replace(pred_structure=2, hierarchical_levels=1),
 assert [(p.display_idx, p.show) for p in hier] == [
     (0, True), (2, False), (1, False), (1, True), (2, True), (3, False),
     (3, True)]
+ldb = list(Encoder(cfg.replace(pred_structure=1), device="cpu").encode_all(
+    [synthetic_frame(64, 64, seed=i) for i in range(3)]))
+assert [(p.is_keyframe, p.display_idx) for p in ldb] == [
+    (True, 0), (False, 1), (False, 2)]
+from svt_av1_tpu_torch.app import enc_app
+ivf = sys.argv[2] + "/ldb.ivf"
+assert enc_app.main(["-w", "64", "-h", "64", "--synthetic", "3",
+                     "--intra-period", "-1", "--pred-struct", "1",
+                     "-b", ivf, "--device", "cpu"]) == 0
+assert open(ivf, "rb").read(4) == b"DKIF"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names), "packets", [len(p.payload) for p in pkts])
 """
 
 
-def test_port_imports_and_encodes_with_jax_blocked():
-    res = subprocess.run([sys.executable, "-c", _CHILD, str(ROOT)],
+def test_port_imports_and_encodes_with_jax_blocked(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _CHILD, str(ROOT),
+                          str(tmp_path)],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's encode on one GPU, per frame.
 
-    python3 tools/profile_torch_ldp.py [--config ldp-720p|hierb-1080p]
-                                       [--frames N] [--out DIR]
+    python3 tools/profile_torch_ldp.py
+        [--config ldp-720p|hierb-1080p|ldb-1080p] [--frames N] [--out DIR]
 
-Configs (qp 40, preset 8, deblock + CDEF, the two main paths of
+Configs (qp 40, preset 8, deblock + CDEF, the three main paths of
 chip_smoke.py):
 
   ldp-720p     synthetic 1280x720 frames, low-delay P (IPPP): one
                keyframe, then N-1 P frames (--frames, default 4);
   hierb-1080p  the moving 1920x1080 clip, hierarchical_levels=3,
                compound_mode=1: a keyframe and one mini-GOP, base P
-               frame + 7 B frames.
+               frame + 7 B frames;
+  ldb-1080p    the moving 1920x1080 clip, low-delay B with scene-change
+               detection on: one keyframe, then N-1 LAST + GOLDEN
+               frames (--frames).
 
-For each frame (IPPP: send_picture + get_packet; hier-B: each coded
-inter frame, read around Encoder._dispatch_code) it reports:
+For each frame (IPPP, LDB: send_picture + get_packet; hier-B: each
+coded inter frame, read around Encoder._dispatch_code) it reports:
 
   - wall ms (host clock, ending in torch.cuda.synchronize), of which
     host entropy + packetization;
@@ -23,9 +26,9 @@ inter frame, read around Encoder._dispatch_code) it reports:
   - kernel launches, gather launches and the top kernels by device time.
 
 A first stream warms the caches and is not reported (IPPP: keyframe +
-P; hier-B: keyframe, P, B at hierarchical_levels=1); the hier-B
-keyframe is timed without the profiler.  --out DIR writes the tables to
-DIR/profile_torch_<config>.json.  Needs a CUDA card; imports no JAX.
+P; hier-B: keyframe, P, B at hierarchical_levels=1; LDB: keyframe + one
+LDB frame); the 1080p keyframes are timed without the profiler.  --out
+DIR writes the tables to DIR/profile_torch_<config>.json.  Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ CONFIGS = {
     "ldp-720p": dict(width=1280, height=720, pred_structure=0),
     "hierb-1080p": dict(width=1920, height=1080, pred_structure=2,
                         hierarchical_levels=3, compound_mode=1),
+    "ldb-1080p": dict(width=1920, height=1080, pred_structure=1,
+                      scene_change_detection=True),
 }
 
 
@@ -91,8 +96,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(CONFIGS), default="ldp-720p")
     ap.add_argument("--frames", type=int, default=4,
-                    help="ldp-720p: frames of the measured stream "
-                         "(1 key + N-1 P)")
+                    help="ldp-720p / ldb-1080p: frames of the measured "
+                         "stream (1 key + N-1 inter frames)")
     ap.add_argument("--out", help="directory for profile_torch_<config>.json")
     args = ap.parse_args()
 
@@ -147,6 +152,29 @@ def main() -> int:
                        payload_bytes=len(pkt.payload), **row)
             rows.append(row)
             report(f"frame {i} {row['kind']:3s}", row)
+    elif kw["pred_structure"] == 1:
+        frames = synthetic_clip(w, h, args.frames)
+        warm = E.Encoder(EncoderConfig(**kw), device="cuda")
+        list(warm.encode_all(frames[:2]))
+        enc = E.Encoder(EncoderConfig(**kw), device="cuda")
+
+        def code(f):
+            enc.send_picture(f)
+            return enc.get_packet()
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        code(frames[0])
+        torch.cuda.synchronize()
+        extra["keyframe_ms"] = (time.perf_counter() - t) * 1e3
+        print(f"keyframe (no profiler) {extra['keyframe_ms']:.1f} ms",
+              flush=True)
+        for i, f in enumerate(frames[1:], 1):
+            pkt, row = profiled(torch, G, host_s, lambda: code(f))
+            row = dict(frame=i, kind="key" if pkt.is_keyframe else "LDB",
+                       payload_bytes=len(pkt.payload), **row)
+            rows.append(row)
+            report(f"frame {i} {row['kind']:3s}", row)
     else:
         frames = synthetic_clip(w, h, 1 + (1 << kw["hierarchical_levels"]))
         warm = E.Encoder(EncoderConfig(**{**kw, "hierarchical_levels": 1}),
@@ -176,7 +204,7 @@ def main() -> int:
             enc.send_picture(f)
         enc.flush()
 
-    for kind in ("key", "P", "B"):
+    for kind in ("key", "P", "B", "LDB"):
         r = [x for x in rows if x["kind"] == kind]
         if not r:
             continue

@@ -32,16 +32,29 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 clip through send_picture/get_packet; every frame after
                 the keyframe must be an inter frame (the clip has no
                 cut), and the gather must launch 10 times per LDB frame;
-  7. parity   — encoded on the card and on the CPU, each must give
+  7. main-RD  — the 1080p hierarchical-B encode at the RD preset 6
+                (qp 40, hierarchical_levels=3, compound_mode=1,
+                multi_ref=-1: the coding tools of bench.py's 4K 10-bit
+                VOD config at 8-bit 1080p): a keyframe and one mini-GOP
+                of the moving clip; the keyframe must hold 16x16 leaves,
+                4 interior frames must be coded from three references
+                (display 1, 2, 3, 5), the gather must launch exactly 20 /
+                60 / 80 times for a frame of 1 / 2 / 3 references, and
+                the B frames must hold compound cells;
+  8. parity   — encoded on the card and on the CPU, each must give
                 byte-identical TUs and equal recon: a 320x192 IPPP clip
                 (1 keyframe + 2 P), a 192x128 hier-B clip (levels 2, 6
                 frames: a truncated span at flush), a 320x192 LDB clip,
-                and a 320x192 IPPP clip with a 2x2 tile grid, a 3-frame
-                look-ahead window and push_qp overrides; and the port's
-                CLI (--pred-struct 1 --tiles-log2 1 --qp-file) run in
-                this process at --device cuda and at --device cpu on the
-                same synthetic input must write byte-identical IVF files;
-  8. timing   — at each call site, for both designs, one torch.take
+                a 320x192 IPPP clip with a 2x2 tile grid, a 3-frame
+                look-ahead window and push_qp overrides, and at the RD
+                presets a 192x128 hier-B clip (preset 6, levels 3, 9
+                frames, three-reference frames), a 320x192 IPPP clip and
+                a 320x192 LDB clip (preset 7); and the port's CLI
+                (--pred-struct 1 --tiles-log2 1 --qp-file; and hier-B at
+                --preset 7) run in this process at --device cuda and at
+                --device cpu on the same synthetic input must write
+                byte-identical IVF files;
+  9. timing   — at each call site, for both designs, one torch.take
                 call and the plain version: event ms (CUDA events around
                 20 back-to-back calls) and host us per call (perf_counter
                 around 200 calls issued without a synchronise) at every
@@ -52,12 +65,14 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  For gather_tiles, launches counts the
-main-path launches of phases 4, 5 and 6; ms, device_ms, host_us,
+main-path launches of phases 4 to 7; ms, device_ms, host_us,
 plain_ms, bound_ms and library_ms are sums over the six launches of one
 720p P frame, "per_1080p_b_frame" holds the same sums over the 13
-launches of one 1080p B frame and "per_1080p_ldb_frame" over the 10 of
+launches of one 1080p B frame, "per_1080p_ldb_frame" over the 10 of
 one 1080p LDB frame (the B frame's sites without the compound
-patches).  --out DIR also writes the per-shape and per-frame numbers to
+patches) and "per_1080p_rd_b_frame" over the 80 of one 1080p preset-6
+B frame coded from three references with compound prediction.  --out
+DIR also writes the per-shape and per-frame numbers to
 DIR/chip_smoke.json.  Imports neither JAX nor the JAX package.
 """
 
@@ -76,8 +91,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 W720, H720, N_MAIN = 1280, 720, 8
 W1080, H1080, N_HIERB = 1920, 1080, 9
-# gather launches per frame of each call site on the main paths (the
-# RD presets' dense subpel refine is not on them)
+# gather launches per frame of each call site on the main paths
 P720 = {"warp_by_centers": 1, "globalmv_copy": 1, "cell_refine": 1,
         "mc_patch_luma": 1, "mc_patch_chroma": 2}
 # a B frame: ME warp and cell refine per reference, and per plane the
@@ -92,6 +106,24 @@ BASE_P_LAUNCHES = 5
 LDB1080 = {"warp_by_centers": 2, "cell_refine": 2, "mc_patch_luma": 2,
            "mc_patch_chroma": 4}
 N_LDB = 8
+# a preset-6 B frame from three references with compound prediction:
+# per reference the ME warp, the dense quarter-pel refine at 8/16/32 and
+# the four 64x64 candidates; the compound candidate's two patches per
+# size; per size the MC of ref0, ref1, ref2 and ref1's compound patch on
+# luma, and on each chroma plane
+RD1080 = {"warp_by_centers": 3, "subpel_refine_dense_8": 3,
+          "subpel_refine_dense_16": 3, "subpel_refine_dense_32": 3,
+          "mc_patch_luma_8": 6, "mc_patch_luma_16": 6,
+          "mc_patch_luma_32": 6, "mc_patch_luma_64": 18,
+          "mc_patch_chroma_4": 8, "mc_patch_chroma_8": 8,
+          "mc_patch_chroma_16": 8, "mc_patch_chroma_32": 8}
+# preset 6: gather launches per coded frame by its reference count (the
+# base P frame 20, a two-reference compound B frame 60), and the
+# references of each display index of a levels-3 mini-GOP after a
+# keyframe (the span base 8 joins as ALTREF where it is neither
+# reference)
+RD_LAUNCHES = {1: 20, 2: 60, 3: sum(RD1080.values())}
+RD_NREFS = {8: 1, 4: 2, 2: 3, 1: 3, 3: 3, 6: 2, 5: 3, 7: 2}
 
 
 def phase(name: str, t0: float) -> None:
@@ -144,11 +176,12 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
-def call_sites(torch, MC, G, gen, dev, w, h, per_frame, dense=False):
+def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False):
     """(name, launches per frame on the main path, plane, base_r, base_c,
     gather_tiles kwargs) at the shapes every call site of per_frame has
-    in a w x h frame (and the RD presets' dense refine when dense).
-    Motion is drawn uniformly within each site's reach."""
+    in a w x h frame (rd: the RD presets' sites — the per-size MC patches
+    and the dense refine — in place of the preset-8 grid sites).  Motion
+    is drawn uniformly within each site's reach."""
     ph, pw = -(-h // 64) * 64, -(-w // 64) * 64    # 64-padded geometry
     ry = torch.randint(0, 256, (ph, pw), generator=gen,
                        dtype=torch.uint8).to(dev)
@@ -186,7 +219,14 @@ def call_sites(torch, MC, G, gen, dev, w, h, per_frame, dense=False):
          4, cpad, cpad, 7, -3),
     ]
     grid = [x for x in grid if x[0] in per_frame]
-    if dense:                  # RD presets only: not on the main paths
+    if rd:   # the MC patches of every leaf size, the dense refine per size
+        grid = []
+        for bs in (8, 16, 32, 64):
+            nb = (ph // bs, pw // bs)
+            grid.append((f"mc_patch_luma_{bs}", py_pad,
+                         (mv(nb, 17), mv(nb, 17)), bs, pad, pad, 7, -3))
+            grid.append((f"mc_patch_chroma_{bs // 2}", pu_pad,
+                         (mv(nb, 9), mv(nb, 9)), bs // 2, cpad, cpad, 7, -3))
         for bs in (8, 16, 32):
             nb = (ph // bs, pw // bs)
             grid.append((f"subpel_refine_dense_{bs}", py_pad,
@@ -264,15 +304,18 @@ def exact(torch, got, want, what):
 
 def kernel_phase(torch, MC, G, dev):
     """Hold every gather design against gather_tiles_ref at each
-    call-site shape of a 720p P frame and of a 1080p B frame, and at the
-    awkward shapes; returns the per-site records (with the byte bound)
-    and the launches to time at each site."""
+    call-site shape of a 720p P frame, of a 1080p B frame and of a 1080p
+    preset-6 B frame, and at the awkward shapes; returns the per-site
+    records (with the byte bound) and the launches to time at each
+    site."""
     gen = torch.Generator().manual_seed(0)
     recs, timed = [], []
     sites = [("720p P", s) for s in call_sites(torch, MC, G, gen, dev, W720,
-                                               H720, P720, dense=True)]
+                                               H720, P720)]
     sites += [("1080p B", s) for s in call_sites(torch, MC, G, gen, dev,
                                                  W1080, H1080, B1080)]
+    sites += [("1080p RD B", s) for s in call_sites(
+        torch, MC, G, gen, dev, W1080, H1080, RD1080, rd=True)]
     for frame, (name, per_frame, plane, br, bc, kw) in sites:
         th, tw = kw["th"], kw["tw"]
         want = G.gather_tiles_ref(plane, br, bc, th, tw)
@@ -380,23 +423,26 @@ def main_path(torch, G, svt, cfg_kw):
 def hierb_path(torch, G, svt, cfg_kw):
     """1080p hier-B through the user entry points: a keyframe, then one
     mini-GOP sent frame by frame and flushed.  Returns (TUs in decode
-    order, keyframe seconds, {display index: seconds} of each coded
-    frame, gather launches during the run).  Each coded frame's time
-    (device step + host entropy) is read around Encoder._dispatch_code,
-    with the card synchronised."""
+    order, keyframe seconds, {display index: seconds} and {display index:
+    gather launches} of each coded frame, gather launches during the
+    run, the encoder).  Each coded frame's time (device step + host
+    entropy) is read around Encoder._dispatch_code, with the card
+    synchronised."""
     from svt_av1_tpu_torch.io.yuv import synthetic_clip
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
     frames = synthetic_clip(W1080, H1080, N_HIERB)
     enc = Encoder(svt.EncoderConfig(**cfg_kw), device="cuda")
     code = enc._dispatch_code
-    secs = {}
+    secs, counts = {}, {}
 
-    def timed_code(step, frame, qindex, pins):
+    def timed_code(step, *args, **kw):
         torch.cuda.synchronize()
+        n0 = G.gather_tiles.launches
         t = time.time()
-        code(step, frame, qindex, pins)
+        code(step, *args, **kw)
         torch.cuda.synchronize()
         secs[step.disp] = time.time() - t
+        counts[step.disp] = G.gather_tiles.launches - n0
 
     enc._dispatch_code = timed_code
     G.gather_tiles.launches = 0
@@ -414,7 +460,7 @@ def hierb_path(torch, G, svt, cfg_kw):
         if pkt is None:
             break
         tus.append(pkt)
-    return tus, key_s, secs, launches
+    return tus, key_s, secs, counts, launches, enc
 
 
 def ldb_path(torch, G, svt, cfg_kw):
@@ -457,10 +503,11 @@ def drive(enc, frames, qps=None):
     return out
 
 
-def cli_parity():
+def cli_parity(flags):
     """The port's CLI in this process at --device cuda and --device cpu
-    on the same synthetic input (low-delay B, a 2-column tile grid, a QP
-    file); the IVF files must be byte-identical.  Returns their size."""
+    on the same synthetic input under flags (a QP file is written for
+    "{qp}"); the IVF files must be byte-identical.  Returns their
+    size."""
     from svt_av1_tpu_torch.app import enc_app
     with tempfile.TemporaryDirectory() as d:
         qp = Path(d) / "qp.txt"
@@ -468,24 +515,23 @@ def cli_parity():
         ivf = {}
         for device in ("cuda", "cpu"):
             out = Path(d) / f"{device}.ivf"
-            rc = enc_app.main(["-w", "320", "-h", "192", "-q", "40",
-                               "--synthetic", "4", "--intra-period", "-1",
-                               "--pred-struct", "1", "--tiles-log2", "1",
-                               "--qp-file", str(qp), "-b", str(out),
-                               "--device", device])
+            rc = enc_app.main([f.format(qp=qp) for f in flags]
+                              + ["-b", str(out), "--device", device])
             if rc != 0:
                 raise AssertionError(f"enc_app --device {device} exited {rc}")
             ivf[device] = out.read_bytes()
     if ivf["cuda"] != ivf["cpu"]:
-        raise AssertionError("CLI: card and CPU IVF files differ")
+        raise AssertionError(f"CLI {flags}: card and CPU IVF files differ")
     return len(ivf["cuda"])
 
 
 def parity_phase(svt):
     """Small clips on the card and on the CPU: IPPP at 320x192, hier-B
     at 192x128 (levels 2, 6 frames, so the flush codes a truncated
-    span), LDB at 320x192 and tiled IPPP at 320x192 with look-ahead and
-    push_qp; TUs must be identical.  Returns the TU byte sizes."""
+    span), LDB at 320x192, tiled IPPP at 320x192 with look-ahead and
+    push_qp, and at the RD presets hier-B at 192x128 (preset 6, levels
+    3), IPPP and LDB at 320x192 (preset 7); TUs must be identical.  Then
+    the CLI.  Returns the TU byte sizes."""
     from svt_av1_tpu_torch.io.yuv import synthetic_frame
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
     small = dict(width=320, height=192, qp=40, intra_period=-1,
@@ -504,6 +550,16 @@ def parity_phase(svt):
         ("320x192 IPPP, 2x2 tiles, look-ahead 3, push_qp",
          dict(small, pred_structure=0, tile_columns_log2=1,
               tile_rows_log2=1, look_ahead_distance=3), 40, 5, 5),
+        ("192x128 hier-B preset 6 (levels 3, three-reference frames)",
+         dict(width=192, height=128, qp=40, intra_period=-1,
+              pred_structure=2, hierarchical_levels=3, compound_mode=1,
+              scene_change_detection=False, enc_mode=6,
+              recon_output=True), 50, 9, 17),
+        ("320x192 IPPP preset 7",
+         dict(small, pred_structure=0, scene_change_detection=False,
+              enc_mode=7), 60, 4, 4),
+        ("320x192 LDB preset 7", dict(small, pred_structure=1, enc_mode=7),
+         70, 4, 4),
     ]
     qps = [30, None, 45, 20]
     sizes = {}
@@ -528,7 +584,14 @@ def parity_phase(svt):
                     raise AssertionError(f"{name}: card/CPU recon differ: "
                                          f"TU {i} {p}")
         sizes[name] = [len(p.payload) for p in out["cuda"]]
-    sizes["320x192 CLI LDB, tiles, QP file (IVF bytes)"] = [cli_parity()]
+    sizes["320x192 CLI LDB, tiles, QP file (IVF bytes)"] = [cli_parity(
+        ["-w", "320", "-h", "192", "-q", "40", "--synthetic", "4",
+         "--intra-period", "-1", "--pred-struct", "1", "--tiles-log2", "1",
+         "--qp-file", "{qp}"])]
+    sizes["192x128 CLI hier-B --preset 7 (IVF bytes)"] = [cli_parity(
+        ["-w", "192", "-h", "128", "-q", "40", "--synthetic", "5",
+         "--intra-period", "-1", "--pred-struct", "2",
+         "--hierarchical-levels", "2", "--preset", "7"])]
     return sizes
 
 
@@ -570,7 +633,7 @@ def main() -> int:
     t = time.time()
     dev = torch.device("cuda")
     sites, timed = kernel_phase(torch, MC, G, dev)
-    phase("kernel designs vs plain (exact) at 720p P and 1080p B "
+    phase("kernel designs vs plain (exact) at 720p P, 1080p B, 1080p RD B "
           "call-site and awkward shapes", t)
 
     t = time.time()
@@ -605,7 +668,8 @@ def main() -> int:
                     enable_cdef=True, recon_output=False,
                     scene_change_detection=False, enc_mode=8,
                     stat_report=True)
-    tus, key_s, bsecs, b_launches = hierb_path(torch, G, svt, hierb_kw)
+    tus, key_s, bsecs, _, b_launches, _ = hierb_path(torch, G, svt,
+                                                     hierb_kw)
     coded = [p for p in tus if p.recon is not None]
     shows = [p for p in tus if p.recon is None]
     if (len(tus) != 2 * N_HIERB - 1 or len(coded) != N_HIERB
@@ -680,15 +744,59 @@ def main() -> int:
     phase("main path 1080p low-delay B (1 key + 7 LDB, scene cuts on)", t)
 
     t = time.time()
+    rd_kw = dict(hierb_kw, enc_mode=6, multi_ref=-1)
+    rtus, rkey_s, rsecs, rcounts, rd_launches, renc = hierb_path(
+        torch, G, svt, rd_kw)
+    rcoded = [p for p in rtus if p.recon is not None]
+    if ([p.display_idx for p in rcoded] != [0, 8, 4, 2, 1, 3, 6, 5, 7]
+            or len(rtus) != 2 * N_HIERB - 1
+            or not all(p.payload for p in rtus)):
+        raise AssertionError("preset-6 hier-B TUs out of the mini-GOP's "
+                             "decode order")
+    leaf16 = rcoded[0].leaf16_cells
+    if not leaf16:
+        raise AssertionError("the preset-6 keyframe holds no 16x16 leaf")
+    if renc._nrefs3_frames != 4:
+        raise AssertionError(f"{renc._nrefs3_frames} three-reference frames, "
+                             f"not 4 (display 1, 2, 3, 5)")
+    want_r = {d: RD_LAUNCHES[n] for d, n in RD_NREFS.items()}
+    if rcounts != want_r or rd_launches != sum(want_r.values()):
+        raise AssertionError(f"the preset-6 path launched the gather kernel "
+                             f"{rcounts} times per frame, not {want_r}")
+    rcomp = sum(p.compound_cells for p in rcoded[2:])
+    if rcomp <= 0:
+        raise AssertionError("no compound cell in the preset-6 B frames")
+    r_psnr = [p.psnr[0] for p in rcoded]
+    if not all(25.0 < v < 60.0 for v in r_psnr):
+        raise AssertionError(f"preset-6 PSNR-Y out of range: {r_psnr}")
+    print(f"  1080p hier-B preset 6: {len(rcoded)} coded + "
+          f"{len(rtus) - len(rcoded)} show-existing TUs, "
+          f"{sum(len(p.payload) for p in rtus)} bytes, PSNR-Y "
+          f"{min(r_psnr):.2f}..{max(r_psnr):.2f} dB, keyframe 16x16-leaf "
+          f"cells {leaf16} of {(H1080 // 8) * (W1080 // 8)}, three-reference "
+          f"frames {renc._nrefs3_frames}, gather launches {rd_launches}, "
+          f"compound cells {rcomp}", flush=True)
+    for d in sorted(rsecs):
+        print(f"  display {d} ({RD_NREFS[d]} ref): {rsecs[d] * 1e3:.1f} ms, "
+              f"{rcounts[d]} gathers", flush=True)
+    print(f"  frame ms: key {rkey_s * 1e3:.1f}, base P {rsecs[8] * 1e3:.1f}, "
+          f"B mean {sum(rsecs[d] for d in range(1, 8)) / 7 * 1e3:.1f}",
+          flush=True)
+    phase("main path 1080p hier-B preset 6 (1 key + base P + 7 B, "
+          "three references)", t)
+
+    t = time.time()
     sizes = parity_phase(svt)
     for name, sz in sizes.items():
         print(f"  {name} card == CPU, bytes {sz}", flush=True)
     phase("card vs CPU: 320x192 IPPP, 192x128 hier-B, 320x192 LDB, tiled "
-          "look-ahead push_qp IPPP, CLI", t)
+          "look-ahead push_qp IPPP, preset 6 hier-B, preset 7 IPPP and "
+          "LDB, CLI", t)
 
     t = time.time()
     timing_phase(sites, timed)
-    phase("gather timings at the 720p P and 1080p B call sites", t)
+    phase("gather timings at the 720p P, 1080p B and 1080p RD B call "
+          "sites", t)
 
     def tot(frame, get, per=None):
         """Sum of get(site) over one frame's main-path launches (per:
@@ -715,14 +823,16 @@ def main() -> int:
         "route": "cuda",
         "source": "svt_av1_tpu_torch/csrc/gather_tiles.cu",
         "replaces": "svt_av1_tpu/ops/gather.py:151",
-        "launches": launches + b_launches + ldb_launches,
+        "launches": launches + b_launches + ldb_launches + rd_launches,
         "max_abs_err": max(s["max_abs_err"] for s in sites),
         **per_frame("720p P"), "bound_by": "bytes",
         "per_1080p_b_frame": per_frame("1080p B"),
-        "per_1080p_ldb_frame": per_frame("1080p B", LDB1080)}]}
+        "per_1080p_ldb_frame": per_frame("1080p B", LDB1080),
+        "per_1080p_rd_b_frame": per_frame("1080p RD B")}]}
     for label, frame, per in (("720p P", "720p P", None),
                               ("1080p B", "1080p B", None),
-                              ("1080p LDB", "1080p B", LDB1080)):
+                              ("1080p LDB", "1080p B", LDB1080),
+                              ("1080p RD B", "1080p RD B", None)):
         for d in ["main", *(d for d in G.DESIGNS if d != G.MAIN_DESIGN),
                   "take", "plain"]:
             dv = tot(frame, lambda s: s[d]["device_us"], per)
@@ -748,6 +858,12 @@ def main() -> int:
             "ldb": {"frame_s": lsecs,
                     "packet_bytes": [len(p.payload) for p in lpkts],
                     "psnr_y": l_psnr, "launches": lcounts},
+            "rd_hierb": {"key_s": rkey_s, "coded_s": rsecs,
+                         "tu_bytes": [len(p.payload) for p in rtus],
+                         "psnr_y": r_psnr, "launches": rcounts,
+                         "leaf16_cells": leaf16,
+                         "nrefs3_frames": renc._nrefs3_frames,
+                         "compound_cells": rcomp},
             "parity_tu_bytes": sizes,
             "kernels": kernels["kernels"],
             "total_s": time.time() - t0}, indent=1))

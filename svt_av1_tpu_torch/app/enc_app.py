@@ -4,14 +4,16 @@ SvtAv1EncApp, EbAppMain.c:82 / EbAppConfig.c tokens).
 The same flags as the reference package's CLI, and writes the same IVF,
 recon and stat files, plus ``--device cuda|cpu`` (default ``cuda``;
 without a card the app fails unless ``--device cpu`` is given — it
-never falls back to the CPU):
+never falls back to the CPU) and ``--multi-ref -1|0|1`` (the config's
+multi_ref: a third reference on hier-B interior frames; -1 follows the
+preset):
   -i <file>       input (.y4m autodetected, else raw 4:2:0 YUV; '-' stdin)
   -b <file>       output IVF bitstream
   -o <file>       optional recon YUV output (ref -o)
   -w/-h           width/height (required for raw YUV)
   -q              quantizer 0..63 (ref -q)
   -n              number of frames to encode
-  --preset        enc_mode 0..8 (ref -enc-mode)
+  --preset        enc_mode 0..8 (ref -enc-mode; the port runs 6..8)
   --intra-period  -2 intra-only, -1 first-frame-only, N = keyframe every N+1
   --pred-struct   0 low-delay P, 1 low-delay B, 2 random access (hier-B)
   --fps           frame rate (IVF header)
@@ -22,7 +24,7 @@ never falls back to the CPU):
   --synthetic N   encode N synthetic frames (no input needed)
 
 Settings the port does not run yet (``--nch > 1``, ``--gop-shards >
-1``, ``--scm``, ``--rc``, 10-bit, presets below 8, ...) exit non-zero
+1``, ``--scm``, ``--rc``, 10-bit, presets below 6, ...) exit non-zero
 with the refusal's text.
 
 Run: python -m svt_av1_tpu_torch.app.enc_app -w 854 -h 480 -q 40 \\
@@ -118,6 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="injector: pace input at N fps (live-input "
                         "simulation, ref EbInjector / "
                         "EbAppProcessCmd.c:987)")
+    p.add_argument("--multi-ref", dest="multi_ref", type=int, default=-1,
+                   choices=(-1, 0, 1),
+                   help="third reference on hier-B interior frames: 1 on, "
+                        "0 off, -1 on at presets <= 7")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the encoder runs (default cuda; no "
                         "fallback to the CPU)")
@@ -174,7 +180,7 @@ def main(argv=None) -> int:
         frames = reader.frames()
 
     cfg = EncoderConfig(width=width, height=height, qp=args.qp,
-                        enc_mode=args.preset,
+                        enc_mode=args.preset, multi_ref=args.multi_ref,
                         bit_depth=args.bit_depth,
                         intra_period=args.intra_period,
                         pred_structure=args.pred_struct,

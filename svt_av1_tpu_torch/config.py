@@ -221,11 +221,14 @@ def check_slice(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` naming every enabled setting that the
     port does not run yet.
 
-    The port covers 8-bit CQP encoding at preset 8: all-intra streams,
-    low-delay-P (IPPP) chains with one reference and global motion,
-    low-delay B (``pred_structure=1``: LAST + GOLDEN) and hierarchical-B
-    random access (``pred_structure=2``, with or without compound
-    prediction), with deblocking and CDEF, scene-change detection (the
+    The port covers 8-bit CQP encoding at presets 6-8 (6-7: the full-RD
+    inter merge and the 16x16 keyframe partition search; multi_ref
+    -1/0/1, a third reference on hier-B interior frames): all-intra
+    streams, low-delay-P (IPPP) chains with one reference and global
+    motion, low-delay B (``pred_structure=1``: LAST + GOLDEN) and
+    hierarchical-B random access (``pred_structure=2``, with or without
+    compound prediction), with deblocking and CDEF, scene-change
+    detection (the
     flat structures; hier-B ignores it, as the reference package does),
     look-ahead q offsets (the flat structures) and tiled inter frames.
     Everything else is refused by name rather than encoded differently
@@ -234,8 +237,7 @@ def check_slice(cfg: EncoderConfig) -> None:
     inter = not cfg.intra_only
     hier = inter and cfg.pred_structure == PRED_STRUCT_RANDOM_ACCESS
     gates = {
-        "enc_mode<8 (RD presets: rdo/txs/rect, multi-ref)": cfg.enc_mode < 8,
-        "multi_ref=1": cfg.multi_ref == 1,
+        "enc_mode<=5 (txs, rect, rich intra)": cfg.enc_mode <= 5,
         "bit_depth=10": cfg.bit_depth == 10,
         "enable_adaptive_quantization": bool(
             cfg.enable_adaptive_quantization),

@@ -52,6 +52,59 @@ def _offset_sads(src, ref_pad, n: int, bs: int):
     return torch.cat(out)
 
 
+def _rate_biased(sads, n: int, r: int, lam, priors):
+    """Add the MV-rate bias (lam * mv_rate_bits(mv - prior)) >> 4 to an
+    [n*n, h, w] raster-offset SAD stack (lam None: pure SAD)."""
+    if lam is None:
+        return sads
+    dyx = _offset_table(r, sads.device)                      # [n*n, 2]
+    mv8 = (dyx[:, None, None, :]
+           - (priors[None] if priors is not None else 0)) * 8
+    return sads + ((lam * mv_rate_bits(mv8)) >> 4)
+
+
+def _winners(cost, n: int, r: int):
+    """First-minimum offset per block -> (mv [h, w, 2] full-pel, cost)."""
+    k = torch.argmin(cost, 0)
+    mv = torch.stack([k // n - r, k % n - r], dim=-1).to(torch.int32)
+    return mv, cost.min(0).values
+
+
+def fullpel_search(src, ref_pad, block: int, search_range: int,
+                   lam=None, prior_fp=None):
+    """Exhaustive full-pel rate-biased SAD search on aligned blocks.
+
+    src [H, W] int32 (multiples of ``block``); ref_pad [H + 2R, W + 2R]
+    edge-padded reference; cost = SAD + (lam * mv_bits(mv - prior)) >> 4
+    (lam None: pure SAD); prior_fp [nbh, nbw, 2] full-pel MV predictor
+    or None for (0, 0).  Returns (mv [nbh, nbw, 2] int32 full-pel
+    (row, col), cost [nbh, nbw]); ties keep the first offset in raster
+    order.  Not on the encoder's path (the reference package keeps it
+    beside the HME sweep)."""
+    n = 2 * search_range + 1
+    sads = _offset_sads(src.to(torch.int32), ref_pad.to(torch.int32), n,
+                        block)
+    return _winners(_rate_biased(sads, n, search_range, lam, prior_fp),
+                    n, search_range)
+
+
+def fullpel_search_multisize(src, ref_pad, search_range: int, lam=None,
+                             priors=None):
+    """One exhaustive sweep scoring 8/16/32 blocks: a 16x16 (32x32)
+    block's SAD at an offset is the 2x2 (4x4) sum of its 8x8 children's.
+    priors: optional {8: [nb8h, nb8w, 2], 16: ..., 32: ...} full-pel MV
+    priors for the rate bias.  Returns {bs: (mv, cost)}."""
+    n = 2 * search_range + 1
+    d = {8: _offset_sads(src.to(torch.int32), ref_pad.to(torch.int32), n,
+                         8)}
+    d[16] = _blocksum(d[8], 2)
+    d[32] = _blocksum(d[16], 2)
+    return {bs: _winners(_rate_biased(
+        d[bs], n, search_range, lam,
+        None if priors is None else priors[bs]), n, search_range)
+        for bs in (8, 16, 32)}
+
+
 def hme_centers(src, ref, search_reach: int = 12):
     """Hierarchical ME level 0: quarter-res full search -> per-32x32-tile
     full-pel center MVs (ref HmeLevel0, EbMotionEstimation.c:5689).
@@ -149,3 +202,18 @@ def median3_mv_field(mv):
     upr[:, -1] = 0
     return left + up + upr - torch.minimum(torch.minimum(left, up), upr) \
         - torch.maximum(torch.maximum(left, up), upr)
+
+
+def gather_blocks(plane_pad, mv, block: int, pad: int):
+    """Motion-compensated block gather from a padded plane: plane_pad
+    [H + 2 pad, W + 2 pad], mv [nbh, nbw, 2] integer offsets in this
+    plane's pixels, each block inside the padded plane.  Returns [nbh,
+    nbw, block, block]."""
+    nbh, nbw = mv.shape[:2]
+    dev = plane_pad.device
+    base_r = torch.arange(nbh, device=dev)[:, None] * block + pad + mv[..., 0]
+    base_c = torch.arange(nbw, device=dev)[None, :] * block + pad + mv[..., 1]
+    k = torch.arange(block, device=dev)
+    rr = base_r[:, :, None, None] + k[None, None, :, None]
+    cc = base_c[:, :, None, None] + k[None, None, None, :]
+    return plane_pad[rr.long(), cc.long()]

@@ -1,12 +1,15 @@
 """Public encoder API of the port.
 
 Port of svt_av1_tpu/pipeline/encoder.py for the slice it covers: 8-bit
-CQP at preset 8 — all-intra streams, low-delay-P (IPPP) chains with one
-reference (``EncoderConfig(intra_period=-1, pred_structure=0)``, with
-global motion), low-delay B (``pred_structure=1``: every frame predicts
-from the previous frame and the keyframe) and hierarchical-B random
-access (``pred_structure=2``, any ``hierarchical_levels``,
-``compound_mode`` 0 or 1), with deblocking and CDEF; scene-change
+CQP at presets 6-8 (6-7: the full-RD inter merge, the 16x16 keyframe
+partition search on inter streams, and with multi-reference prediction
+a third reference on hier-B interior frames) — all-intra streams,
+low-delay-P (IPPP) chains with one reference
+(``EncoderConfig(intra_period=-1, pred_structure=0)``, with global
+motion), low-delay B (``pred_structure=1``: every frame predicts from
+the previous frame and the keyframe) and hierarchical-B random access
+(``pred_structure=2``, any ``hierarchical_levels``, ``compound_mode`` 0
+or 1), with deblocking and CDEF; scene-change
 keyframes and look-ahead q offsets in the flat structures, per-frame QP
 overrides (``push_qp``), tiled inter frames and checkpoint / restore.
 Anything else raises ``NotImplementedError`` (config.check_slice).
@@ -70,6 +73,8 @@ class Packet:
     qindex: Optional[int] = None
     # two-reference frames: 8x8 cells predicted by the compound average
     compound_cells: Optional[int] = None
+    # keyframes at the RD presets: 8x8 cells inside 16x16 leaves
+    leaf16_cells: Optional[int] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -99,6 +104,14 @@ class Encoder:
         # low-delay B: every frame references the previous frame (LAST)
         # and the keyframe anchor (GOLDEN), both forward, shown in order
         self._ldb = config.pred_structure == 1 and not config.intra_only
+        # preset signals (ref signal_derivation_enc_dec_kernel_oq):
+        # presets 6-7 run the full-RD inter merge and the 16x16 keyframe
+        # partition search; multi-reference prediction (a third, ALTREF
+        # reference on hier-B interior frames) follows multi_ref, or the
+        # preset when it is -1
+        self._rdo = config.enc_mode <= 7
+        self._mrp = (bool(config.multi_ref) if config.multi_ref >= 0
+                     else config.enc_mode <= 7)
         self.seq = O.SequenceParams(
             config.width, config.height, config.bit_depth, config.sb_size,
             enable_cdef=config.enable_cdef, enable_order_hint=self._hier,
@@ -125,6 +138,8 @@ class Encoder:
         # frame and of the keyframe
         self._ldb_last = None
         self._ldb_golden = None
+        # hier-B frames coded from three references
+        self._nrefs3_frames = 0
         if self._hier:
             self._store: dict = {}         # disp -> {dev, slot, pins}
             self._free_slots = list(range(8))
@@ -305,7 +320,7 @@ class Encoder:
                 q = layer_qindex(self._frame_qindex(False), step.layer)
                 q = max(1, min(255, q))
                 self._dispatch_code(step, frames[step.disp], q,
-                                    pending_pins.pop(step.disp, 0))
+                                    pending_pins.pop(step.disp, 0), alt=hi)
                 self._unpin(step.fwd)
                 if step.bwd is not None:
                     self._unpin(step.bwd)
@@ -318,11 +333,14 @@ class Encoder:
         self._anchor = hi
 
     def _dispatch_code(self, step, frame: Frame, qindex: int,
-                       pins: int) -> None:
+                       pins: int, alt=None) -> None:
         """Code one hier-B frame, no-show: the mini-GOP base through the
         one-reference P step (no global motion: it is IPPP-only), an
-        interior frame through the two-reference B step (LAST = the
-        forward reference, ALTREF = the backward one)."""
+        interior frame through the multi-reference B step (LAST = the
+        forward reference, ALTREF = the backward one).  alt: display
+        index of the span's base; with multi-reference prediction an
+        interior frame whose references are not it adds it as a third
+        single-prediction reference (LAST, BWDREF, ALTREF)."""
         cfg = self.cfg
         _, _, ph64, pw64 = self._geometry
         sy, su, sv = self._upload_src(frame)
@@ -332,32 +350,49 @@ class Encoder:
         filt = self._pick_interp(frame, qindex)
         dyn = (qindex, lvls[0], lvls[2], lvls[3])
         compound = False
+        third = None
         if step.bwd is None:
             nrefs = 1
             fn = PE.build_p_frame_encoder_dyn(
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
-                cdef=cfg.enable_cdef, bd=cfg.bit_depth, filt=filt)
+                cdef=cfg.enable_cdef, bd=cfg.bit_depth, rdo=self._rdo,
+                filt=filt)
             out = fn(sy, su, sv, *fwd["dev"], *dyn)
         else:
-            nrefs = 2
             compound = cfg.compound_mode > 0
+            if (self._mrp and alt is not None
+                    and alt not in (step.fwd, step.bwd)
+                    and alt in self._store):
+                third = self._store[alt]
+            nrefs = 3 if third is not None else 2
+            if nrefs == 3:
+                self._nrefs3_frames += 1
             fn = PE.build_b_frame_encoder_dyn(
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
                 cdef=cfg.enable_cdef, compound=compound, bd=cfg.bit_depth,
-                filt=filt)
-            out = fn(sy, su, sv, *fwd["dev"], *bwd["dev"], *dyn)
+                filt=filt, rdo=self._rdo, nrefs=nrefs)
+            extra = third["dev"] if third is not None else ()
+            out = fn(sy, su, sv, *fwd["dev"], *bwd["dev"], *extra, *dyn)
         slot = self._free_slots.pop(0)
         self._store[step.disp] = {"dev": self._recon_as_ref(out),
                                   "slot": slot, "pins": pins}
         fs, bs = fwd["slot"], bwd["slot"]
         fh = self._hint(step.fwd)
         bh = fh if step.bwd is None else self._hint(step.bwd)
+        if nrefs == 3:
+            ts, th = third["slot"], self._hint(alt)
+            ref_types = (1, 5, 7)                 # LAST, BWDREF, ALTREF
+            ref_idx = (fs, fs, fs, fs, bs, ts, ts)
+            ref_hints = (fh, fh, fh, fh, bh, th, th)
+        else:
+            ref_types = (1, 7)                    # LAST, ALTREF
+            ref_idx = (fs, fs, fs, fs, bs, bs, bs)
+            ref_hints = (fh, fh, fh, fh, bh, bh, bh)
         meta = {"nrefs": nrefs, "compound": compound, "show": False,
-                "ref_types": (1, 7),              # LAST, ALTREF
+                "ref_types": ref_types,
                 "order_hint": self._hint(step.disp),
                 "refresh": 1 << slot,
-                "ref_idx": (fs, fs, fs, fs, bs, bs, bs),
-                "ref_hints": (fh, fh, fh, fh, bh, bh, bh)}
+                "ref_idx": ref_idx, "ref_hints": ref_hints}
         arrs = [a.cpu().numpy() for a in out]
         pkt = self._make_inter_packet(frame, arrs, qindex, None, meta)
         pkt.show = False
@@ -438,7 +473,7 @@ class Encoder:
         fn = PE.build_b_frame_encoder_dyn(
             ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
             cdef=cfg.enable_cdef, compound=False, bd=cfg.bit_depth,
-            filt=self._pick_interp(frame, qindex))
+            filt=self._pick_interp(frame, qindex), rdo=self._rdo)
         out = fn(sy, su, sv, *self._ldb_last[0], *self._ldb_golden[0],
                  qindex, lvls[0], lvls[2], lvls[3])
         ls, gs = self._ldb_last[1], self._ldb_golden[1]
@@ -483,7 +518,8 @@ class Encoder:
             fn = PE.build_p_frame_encoder_dyn(
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
                 cdef=self.cfg.enable_cdef, bd=self.cfg.bit_depth,
-                filt=self._pick_interp(frame, qindex), gm=self._gm_enab)
+                rdo=self._rdo, filt=self._pick_interp(frame, qindex),
+                gm=self._gm_enab)
             out = fn(sy, su, sv, *self._ref_dev, qindex, lvls[0], lvls[2],
                      lvls[3], gmv or (0, 0))
             self._ref_dev = self._recon_as_ref(out)
@@ -493,44 +529,65 @@ class Encoder:
         self._packets.append(pkt)
 
     def _intra_dispatch(self, frame: Frame, qindex: int):
-        """Keyframe: wavefront encode + in-loop filters on the device.
+        """Keyframe: wavefront encode + in-loop filters on the device (the
+        RD presets' wavefront picks 16x16 or 8x8 leaves per 16x16 unit).
         Returns (host dict for the packet writer, reference planes)."""
         ph, pw, _, _ = self._geometry
         src = (self._to_dev(IE.pad_plane(frame.y, ph, pw)),
                self._to_dev(IE.pad_plane(frame.u, ph // 2, pw // 2)),
                self._to_dev(IE.pad_plane(frame.v, ph // 2, pw // 2)))
-        out = IE.frame_step(IE.block_planes(src[0], 8),
-                            IE.block_planes(src[1], 4),
-                            IE.block_planes(src[2], 4), qindex,
-                            self.cfg.bit_depth)
+        blocks = (IE.block_planes(src[0], 8), IE.block_planes(src[1], 4),
+                  IE.block_planes(src[2], 4))
+        # the RD presets' 16x16 partition search runs on the keyframes of
+        # inter streams; all-intra streams keep the 8x8 wavefront at every
+        # preset (the reference's batched all-intra path)
+        part16 = self._rdo and not self.cfg.intra_only
+        step = IE.frame_step16 if part16 else IE.frame_step
+        out = step(*blocks, qindex, self.cfg.bit_depth)
         planes = tuple(IE.unblock_planes(out[i]) for i in (4, 5, 6))
         cdef_idx = None
         if self.cfg.enable_deblocking or self.cfg.enable_cdef:
-            # per-cell coded-skip map (CDEF skips skip blocks, spec 7.15)
-            sk = ((out[1] == 0).all(-1).all(-1)
-                  & (out[2] == 0).all(-1).all(-1)
-                  & (out[3] == 0).all(-1).all(-1))
-            planes, cdef_idx = self._intra_postproc(planes, src, sk, qindex)
-        dev = {"modes": out[0].cpu().numpy(),
-               "levels_y": out[1].cpu().numpy(),
-               "levels_u": out[2].cpu().numpy(),
-               "levels_v": out[3].cpu().numpy(),
-               "cdef_idx": None if cdef_idx is None
-               else cdef_idx.cpu().numpy()}
+            # per-cell coded-skip map (CDEF skips skip blocks, spec 7.15);
+            # a 16x16 leaf's four cells share its skip
+            zero = lambda a: (a == 0).all(-1).all(-1)
+            sk = zero(out[1]) & zero(out[2]) & zero(out[3])
+            sizes8 = None
+            if part16:
+                sizes8 = out[10]
+                nbh, nbw = sizes8.shape
+                sk16 = PE._up(zero(out[11]) & zero(out[12]) & zero(out[13]),
+                              2)[:nbh, :nbw]
+                sk = torch.where(sizes8 == 16, sk16, sk)
+            planes, cdef_idx = self._intra_postproc(planes, src, sk, qindex,
+                                                    sizes8)
+        names = ["modes", "levels_y", "levels_u", "levels_v"]
+        if part16:
+            names += ["angles", "uv_modes", "cfl", "sizes", "levels16_y",
+                      "levels16_u", "levels16_v"]
+        host = [out[i].cpu().numpy() for i in range(4)] + \
+            [a.cpu().numpy() for a in out[7:]]
+        dev = dict(zip(names, host))
+        dev["cdef_idx"] = None if cdef_idx is None else cdef_idx.cpu().numpy()
         if self._need_recon():
             dev["recon_y"], dev["recon_u"], dev["recon_v"] = (
                 p.cpu().numpy() for p in planes)
         return dev, self._as_ref_planes(*planes)
 
-    def _intra_postproc(self, planes, srcs, sk, qindex: int):
-        """Keyframe in-loop filters: deblock on the 8x8 (4x4 chroma) tx
-        grid, then the CDEF search + apply."""
+    def _intra_postproc(self, planes, srcs, sk, qindex: int, sizes8=None):
+        """Keyframe in-loop filters: deblock on the tx grid (8x8 / 4x4
+        chroma, or the per-cell 8/16 leaf sizes of the RD presets), then
+        the CDEF search + apply."""
         ph, pw, _, _ = self._geometry
         ly, _, lu, lv = self._lf_levels(qindex, True)
         i32 = lambda a: a.to(torch.int32)
-        sz_y = torch.full((ph, pw), 8, dtype=torch.int32, device=self.device)
-        sz_c = torch.full((ph // 2, pw // 2), 4, dtype=torch.int32,
-                          device=self.device)
+        if sizes8 is None:
+            sz_y = torch.full((ph, pw), 8, dtype=torch.int32,
+                              device=self.device)
+            sz_c = torch.full((ph // 2, pw // 2), 4, dtype=torch.int32,
+                              device=self.device)
+        else:
+            sz_y = PE._up(i32(sizes8), 8)
+            sz_c = PE._up(i32(sizes8) // 2, 4)
         y = DB.deblock_plane(i32(planes[0]), sz_y, ly, ly, True)
         u = DB.deblock_plane(i32(planes[1]), sz_c, lu, lu, False)
         v = DB.deblock_plane(i32(planes[2]), sz_c, lv, lv, False)
@@ -657,6 +714,14 @@ class Encoder:
         cfg = self.cfg
         fc = FrameContext(qindex)
         cdef_idx = dev.get("cdef_idx") if cfg.enable_cdef else None
+        # the RD presets' 16x16 wavefront: per-cell leaf sizes, the 16x16
+        # leaves' levels and the (zero) angle / DC chroma / CFL maps
+        rd_maps = {}
+        if dev.get("sizes") is not None:
+            rd_maps = {k: dev[k] for k in ("angles", "uv_modes", "cfl",
+                                           "sizes")}
+            rd_maps["levels16"] = (dev["levels16_y"], dev["levels16_u"],
+                                   dev["levels16_v"])
         tile = None
         if cfg.entropy_backend in ("auto", "cpp"):
             from svt_av1_tpu_torch.entropy import backend as native
@@ -664,13 +729,14 @@ class Encoder:
                 tile = native.encode_tile_cpp(
                     fc, self.seq.mi_rows, self.seq.mi_cols, qindex,
                     dev["modes"].astype(np.uint8), dev["levels_y"],
-                    dev["levels_u"], dev["levels_v"], cdef_idx=cdef_idx)
+                    dev["levels_u"], dev["levels_v"], cdef_idx=cdef_idx,
+                    **rd_maps)
             elif cfg.entropy_backend == "cpp":
                 raise RuntimeError("C++ entropy backend unavailable")
         if tile is None:
             tw = TileWriter(fc, self.seq.mi_rows, self.seq.mi_cols, qindex)
             tile = tw.encode(dev["modes"], dev["levels_y"], dev["levels_u"],
-                             dev["levels_v"], cdef_idx=cdef_idx)
+                             dev["levels_v"], cdef_idx=cdef_idx, **rd_maps)
         fp = O.FrameParams(base_q_idx=qindex,
                            tile_cols_log2=0, tile_rows_log2=0,
                            filter_levels=self._lf_levels(qindex, True),
@@ -687,7 +753,10 @@ class Encoder:
                                      dev["recon_v"])
         psnr = (_psnr(frame, recon, cfg.bit_depth)
                 if (cfg.stat_report and recon) else None)
-        return Packet(payload, -1, True, recon, psnr, qindex=qindex)
+        leaf16 = (None if dev.get("sizes") is None
+                  else int((dev["sizes"] == 16).sum()))
+        return Packet(payload, -1, True, recon, psnr, qindex=qindex,
+                      leaf16_cells=leaf16)
 
     def _crop_recon(self, y, u, v) -> Frame:
         h, w = self.seq.height, self.seq.width

@@ -1,22 +1,31 @@
 """P- and B-frame encoder in PyTorch: batched ME + MC + transform coding
 with variable partitions.
 
-Port of svt_av1_tpu/pipeline/inter_encoder.py at preset 8 (rdo=False,
-txs=False, rect=False, lr=False, aq=False): ``p_frame_step`` with one
-reference (low-delay P and the hierarchical-B base layer, with or
-without the global motion candidate) or two (hierarchical-B interior
-frames: the forward and the backward reference, optionally with the
-COMPOUND_AVERAGE of the two).  Inter prediction has no intra-frame
-dependency, so a frame is one bulk-parallel program over every block:
+Port of svt_av1_tpu/pipeline/inter_encoder.py at presets 6-8 (txs=False,
+rect=False, lr=False, aq=False): ``p_frame_step`` with one reference
+(low-delay P and the hierarchical-B base layer, with or without the
+global motion candidate), two (hierarchical-B interior frames: the
+forward and the backward reference, optionally with the
+COMPOUND_AVERAGE of the two; low-delay B: LAST and GOLDEN) or three
+(multi-reference hierarchical-B interior frames: + ALTREF).  Inter
+prediction has no intra-frame dependency, so a frame is one
+bulk-parallel program over every block.  Preset 8 (rdo=False):
 
   hierarchical full-pel ME per reference (HME centers, center-warped
   +-3 lattice)
-  -> fast SAD-domain partition merge (8/16/32/64) on the cheaper
+  -> fast SAD-domain partition merge (8/16/32/64) on the cheapest
      reference's cost
   -> one quarter-pel refinement per 8x8 cell and reference against the
      true reference, then the per-cell reference / compound choice
   -> MC at cell granularity -> residual coding at every leaf size
   -> per-cell selection -> deblocking + CDEF.
+
+The RD presets 6-7 (rdo=True): a +-4 lattice, a dense quarter-pel
+refinement per size, 64x64 candidates from the 32x32 winners, the
+per-size reference argmin and compound candidate, MC and residual
+coding of every leaf size, and a bottom-up merge on the float32 RD cost
+J = SSE + lambda * bits (evaluated as the reference package's XLA:CPU
+build evaluates it, pipeline/rdo.py) -> per-cell selection -> filters.
 
 Every reference-patch read goes through ops.gather (the CUDA tile
 gather on the card).  The reference package's one-hot integer matmuls
@@ -295,11 +304,14 @@ COMP_EXTRA_BITS = round(_LEAF["comp_extra"])
 
 def _coeff_bits(lv):
     """Per-block coefficient-rate estimate in bits from quantized levels
-    (3 + 2*bitlength(|l|) bits per nonzero plus an eob/skip term; ref
+    (3 + 2*bit_length(|l|) bits per nonzero plus an eob/skip term; ref
     av1_estimate_syntax_rate, EbMdRateEstimation.c:76).  lv: [..., n, n]
     -> [...] int32 bits."""
-    a = lv.abs()
-    nb = torch.ceil(torch.log2(a.to(torch.float32) + 1.0)).to(torch.int32)
+    a = lv.abs().to(torch.int32)
+    # ceil(log2(|l| + 1)) == bit_length(|l|): the binary exponent, exact
+    # (the reference's float32 log2 gives the same for every |l| < 2^16,
+    # tools/probe_xla_rd_order.py)
+    nb = torch.frexp(a.to(torch.float32)).exponent.to(torch.int32)
     bits = torch.where(a > 0, 3 + 2 * nb, 0).sum((-1, -2),
                                                   dtype=torch.int32)
     nz = (a > 0).any(-1).any(-1)
@@ -344,42 +356,48 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     Geometry: ph, pw are the 64-padded plane dims; mi_rows/mi_cols the
     frame's mode-info grid.
     step(sy [ph,pw], su, sv [ph/2,pw/2], ref0_y, ref0_u, ref0_v
-         [, ref1_y, ref1_u, ref1_v when nrefs=2], qindex, lf_y, lf_u,
-         lf_v[, gmv])
+         [, ref1_y, ref1_u, ref1_v [, ref2_y, ref2_u, ref2_v]], qindex,
+         lf_y, lf_u, lf_v[, gmv])
     -> (sizes [nb8h,nb8w] u8 (8..64 leaf size covering each 8x8 cell),
         mv8 [nb8h,nb8w,2] i16 (selected cell MV in 1/8 pel),
         ly [nb8h,nb8w,8,8], lu, lv [nb8h,nb8w,4,4] i16 per-cell levels,
         recon_y [ph,pw] u8, recon_u, recon_v, cdef idx [sb rows, sb cols]
-        u8[, ref8 [nb8h,nb8w] u8 (0 = ref0/fwd, 1 = ref1/bwd, 2 =
-        compound) when nrefs=2][, mv2 [nb8h,nb8w,2] i16 (the compound
+        u8[, ref8 [nb8h,nb8w] u8 (index of the cell's reference, nrefs =
+        compound) when nrefs >= 2][, mv2 [nb8h,nb8w,2] i16 (the compound
         cells' ref1 MV) when compound]) — inter_layout(nrefs, compound,
         False, False, False) order.
-    qindex and the loop-filter levels are Python ints; gmv is the
-    frame's (row, col) global translation in 1/8 pel (gm=True with one
-    reference only, as in the reference package).
+    rdo=False is preset 8 (fast SAD merge, then one quarter-pel
+    refinement per 8x8 cell); rdo=True the RD presets 6-7 (dense
+    quarter-pel refinement per size, 64x64 candidates, residual coding
+    of every leaf size and a float32 RD merge).  With nrefs=3 the third
+    reference (ALTREF) joins the per-size argmin; compound pairs
+    (ref0, ref1).  qindex and the loop-filter levels are Python ints;
+    gmv is the frame's (row, col) global translation in 1/8 pel (gm=True
+    with one reference only, as in the reference package).
     """
-    unported = {"nrefs>2": nrefs > 2,
+    unported = {"nrefs>3": nrefs > 3,
                 "compound with nrefs=1": compound and nrefs == 1,
-                "bit_depth=10": bd != 8, "rdo": rdo, "txs": txs,
-                "rect": rect, "lr": lr, "aq": aq,
-                "filters=False": not filters}
+                "bit_depth=10": bd != 8, "txs": txs, "rect": rect,
+                "lr": lr, "aq": aq, "filters=False": not filters}
     off = [k for k, v in unported.items() if v]
     if off:
         raise NotImplementedError(f"p_frame_step: {', '.join(off)} "
                                   "not ported")
     pad = search + 1
     cpad = pad // 2 + 1
-    r2 = 3                  # +-r2 full-pel lattice around the HME centers
+    r2 = 4 if rdo else 3    # +-r2 full-pel lattice around the HME centers
     nb8h, nb8w = ph // 8, pw // 8
     ph_mi, pw_mi = mi_rows * 4, mi_cols * 4
     inside = _inside_masks(ph, pw, mi_rows, mi_cols)
     ac_table = _tbl.spec_tables()[f"ac_qlookup_{bd}"]
     kern_c = _filter_kern(filt)
-    # fast-merge overheads (mode + partition symbols, lambda-scaled below;
-    # two-reference frames add the single_ref bin)
+    # per-leaf overheads (mode + partition symbols; two-reference frames
+    # add the single_ref bin): lambda-scaled ints for the fast merge,
+    # float32 products with lambda_rd for the RD merge
     mb = _LEAF["mode"] + (_LEAF["ref_single"] if nrefs >= 2 else 0)
     oh_bits = {bs: round(mb + _PART_BITS[bs][0]) for bs in SIZES64}
     sp_bits = {bs: round(_PART_BITS[bs][1]) for bs in (16, 32, 64)}
+    mode_bits = round(mb)
     # merged-cell refinement lattice: 5x5 quarter-pel offsets (1/8 units)
     reach_q = 4
     cand = [(dy, dx) for dy in range(-reach_q, reach_q + 1, 2)
@@ -391,7 +409,8 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         gmv = rest[3 * nrefs + 4] if len(rest) > 3 * nrefs + 4 else None
         dev = sy.device
         q = int(qindex)
-        lam = max(8, int(ac_table[q]) // 4)
+        ac = int(ac_table[q])
+        lam = max(8, ac // 4)
         lf_levels = (int(lf_y), int(lf_y), int(lf_u), int(lf_v))
         ins = {bs: torch.as_tensor(m, device=dev) for bs, m in inside.items()}
         sy = sy.to(torch.int32)
@@ -402,12 +421,15 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                    MC.pad_for_filter(refs[3 * i + 2], cpad))
                   for i in range(nrefs)]
 
-        def me_one_ref(ry_i, centers):
-            """Hierarchical full-pel ME against one reference: a +-r2
-            multi-size sweep on the center-warped reference, then the
-            rate-biased winners per size and the 64 level from 2x2 sums
-            of the 32 level.  Returns ({bs: mv 1/8 pel}, {bs: cost},
-            {bs: full-pel MVP prior})."""
+        def me_one_ref(i, centers):
+            """Hierarchical full-pel ME against reference i: a +-r2
+            multi-size sweep on the center-warped reference and the
+            rate-biased winners per size; then, at the RD presets, the
+            dense quarter-pel refinement per size against the true
+            reference, else the 64 level from 2x2 sums of the 32 level.
+            Returns ({bs: mv 1/8 pel}, {bs: cost}, {bs: full-pel MVP
+            prior})."""
+            ry_i = refs[3 * i]
             ref_pad = MC.edge_pad(ry_i, search, search, search, search)
             warped = ME.warp_by_centers(ref_pad, centers, 32, search)
             lat = ME.sad_lattice_multisize(sy, warped, r2, bd)
@@ -415,6 +437,14 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             priors = {bs: ME.median3_mv_field(p1[bs][0]) for bs in SIZES}
             p2 = ME.select_from_lattice(lat, centers, 32, r2, lam, priors)
             priors[64] = priors[32][::2, ::2]
+            if rdo:
+                mv_i, cost_i = {}, {}
+                for bs in SIZES:
+                    # its d=0 candidate re-scores the warped-sweep winner
+                    mv_i[bs], cost_i[bs] = _subpel_refine_dense(
+                        _block(sy, bs), padded[i][0], p2[bs][0], bs, pad,
+                        lam, priors[bs] * 8, bd, filt, lat_reach=6)
+                return mv_i, cost_i, priors
             mv_i = {bs: p2[bs][0] * 8 for bs in SIZES}   # 1/8-pel units
             cost_i = {bs: p2[bs][1] for bs in SIZES}
             lat64 = _blocksum2(lat[32])
@@ -428,59 +458,79 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             cost_i[64] = c64.min(0).values
             return mv_i, cost_i, priors
 
-        # quarter-res center search against ref0; the backward reference
-        # of a two-reference frame starts from the mirrored centers (the
-        # hier-B references sit symmetrically around the source)
+        # quarter-res center search against ref0; at preset 8 the near
+        # backward reference starts from the mirrored centers (the hier-B
+        # references sit symmetrically around the source); every other
+        # reference runs its own quarter-res search
+        reach = search - r2
         centers0 = ME.hme_centers(sy, refs[0].to(torch.int32),
-                                  search_reach=search - r2)
-        per_ref = [me_one_ref(refs[0], centers0)]
-        if nrefs == 2:
-            per_ref.append(me_one_ref(
-                refs[3], torch.clamp(-centers0, -(search - r2), search - r2)))
+                                  search_reach=reach)
+        per_ref = [me_one_ref(0, centers0)]
+        for i in range(1, nrefs):
+            cen = (torch.clamp(-centers0, -reach, reach)
+                   if (not rdo and i == 1)
+                   else ME.hme_centers(sy, refs[3 * i], search_reach=reach))
+            per_ref.append(me_one_ref(i, cen))
         mv, cost = dict(per_ref[0][0]), dict(per_ref[0][1])
 
         if gm and nrefs == 1:
-            # GLOBALMV candidate: the estimator emits FULL-pel global
-            # vectors, so one copy-gather at the 8 level + 2x2 sums score
-            # every size; charged mode bits but no MV bits
+            # GLOBALMV candidate, charged mode bits but no MV bits
             g = (0, 0) if gmv is None else (int(gmv[0]), int(gmv[1]))
-            full = lambda v: torch.full((nb8h, nb8w), v >> 3,
-                                        dtype=torch.int32, device=dev)
-            tiles = G.gather_blocks_grid(padded[0][0], full(g[0]),
-                                         full(g[1]), 8, pad, pad - 1)
-            sadg = {8: (_block(sy, 8) - tiles.reshape(nb8h, nb8w, 8, 8)
-                        .to(torch.int32)).abs().sum((-1, -2),
-                                                    dtype=torch.int32)}
-            for bs in (16, 32, 64):
-                sadg[bs] = _sum4(sadg[bs // 2])
             mvg_one = torch.tensor(g, dtype=torch.int32, device=dev)
-            for bs in SIZES64:
-                costg = sadg[bs] + ((lam * 4) >> 4)
-                use_g = costg < cost[bs]
-                mv[bs] = torch.where(use_g[..., None], mvg_one, mv[bs])
-                cost[bs] = torch.minimum(costg, cost[bs])
-        # per-reference MV fields for the cell refinement; the merge runs
-        # on the cheaper reference's cost at every size
-        per_ref_mv = [mv] + [per_ref[i][0] for i in range(1, nrefs)]
-        for i in range(1, nrefs):
-            cost = {bs: torch.minimum(per_ref[i][1][bs], cost[bs])
-                    for bs in SIZES64}
+            if rdo:
+                # subpel prediction at the global translation per size
+                for bs in SIZES:
+                    mvg = mvg_one.expand(ph // bs, pw // bs, 2)
+                    predg = _mc_patch(padded[0][0], mvg, bs, pad, False, bd,
+                                      filt=filt)
+                    costg = ((_block(sy, bs) - predg).abs()
+                             .sum((-1, -2), dtype=torch.int32)
+                             + ((lam * 4) >> 4))
+                    use_g = costg < cost[bs]
+                    mv[bs] = torch.where(use_g[..., None], mvg_one, mv[bs])
+                    cost[bs] = torch.minimum(costg, cost[bs])
+            else:
+                # the estimator emits FULL-pel global vectors, so one
+                # copy-gather at the 8 level + 2x2 sums score every size
+                full = lambda v: torch.full((nb8h, nb8w), v >> 3,
+                                            dtype=torch.int32, device=dev)
+                tiles = G.gather_blocks_grid(padded[0][0], full(g[0]),
+                                             full(g[1]), 8, pad, pad - 1)
+                sadg = {8: (_block(sy, 8) - tiles.reshape(nb8h, nb8w, 8, 8)
+                            .to(torch.int32)).abs().sum((-1, -2),
+                                                        dtype=torch.int32)}
+                for bs in (16, 32, 64):
+                    sadg[bs] = _sum4(sadg[bs // 2])
+                for bs in SIZES64:
+                    costg = sadg[bs] + ((lam * 4) >> 4)
+                    use_g = costg < cost[bs]
+                    mv[bs] = torch.where(use_g[..., None], mvg_one, mv[bs])
+                    cost[bs] = torch.minimum(costg, cost[bs])
 
-        # --- fast SAD-domain rate-biased partition merge ---------------
-        oh = {bs: (lam * oh_bits[bs]) >> 4 for bs in SIZES64}
-        sp = {bs: (lam * sp_bits[bs]) >> 4 for bs in (16, 32, 64)}
-        j8 = cost[8] + oh[8]
-        j_split16 = _sum4(j8) + sp[16]
-        j16 = cost[16] + oh[16]
-        use16 = (j16 <= j_split16) & ins[16]
-        j_at16 = torch.where(use16, j16, j_split16)
-        j_split32 = _sum4(j_at16) + sp[32]
-        j32 = cost[32] + oh[32]
-        use32 = (j32 <= j_split32) & ins[32]
-        j_at32 = torch.where(use32, j32, j_split32)
-        j_split64 = _sum4(j_at32) + sp[64]
-        j64 = cost[64] + oh[64]
-        use64 = (j64 <= j_split64) & ins[64]
+        if rdo:
+            use16, use32, use64, rd = _rd_decide(
+                sy, su, sv, padded, per_ref, mv, cost, q, lam, ac, ins)
+        else:
+            # --- fast SAD-domain rate-biased partition merge on the
+            # cheapest reference's cost at every size ------------------
+            per_ref_mv = [mv] + [per_ref[i][0] for i in range(1, nrefs)]
+            for i in range(1, nrefs):
+                cost = {bs: torch.minimum(per_ref[i][1][bs], cost[bs])
+                        for bs in SIZES64}
+            oh = {bs: (lam * oh_bits[bs]) >> 4 for bs in SIZES64}
+            sp = {bs: (lam * sp_bits[bs]) >> 4 for bs in (16, 32, 64)}
+            j8 = cost[8] + oh[8]
+            j_split16 = _sum4(j8) + sp[16]
+            j16 = cost[16] + oh[16]
+            use16 = (j16 <= j_split16) & ins[16]
+            j_at16 = torch.where(use16, j16, j_split16)
+            j_split32 = _sum4(j_at16) + sp[32]
+            j32 = cost[32] + oh[32]
+            use32 = (j32 <= j_split32) & ins[32]
+            j_at32 = torch.where(use32, j32, j_split32)
+            j_split64 = _sum4(j_at32) + sp[64]
+            j64 = cost[64] + oh[64]
+            use64 = (j64 <= j_split64) & ins[64]
 
         # per-8x8-cell leaf-kind map: 0..3 = square 8/16/32/64
         kind8 = torch.where(_up(use64, 8), 3,
@@ -501,16 +551,228 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
 
         sq_cells = lambda d: {0: d[8], 1: _up(d[16], 2), 2: _up(d[32], 4),
                               3: _up(d[64], 8)}
-        # the per-level value of each cell's leaf ({bs: level array})
+        ref8 = mv2_sel = None
+        if rdo:
+            levels, rec_planes = rd["levels"], rd["rec"]
+            mv_sel = kpick(sq_cells(rd["mv"]), torch.int16)
+            if nrefs >= 2:
+                ref8 = kpick(sq_cells(rd["sel"]), torch.uint8)
+            if compound:
+                mv2_sel = kpick(sq_cells(rd["mv2"]), torch.int16)
+        else:
+            mv_sel, ref8, mv2_sel, levels, rec_planes = _fast_refine_code(
+                sy, su, sv, padded, per_ref, per_ref_mv, kind8, kpick,
+                sq_cells, q, lam)
+
+        # --- final recon: per-cell select of the chosen leaf's recon -----
+        def select_plane(idx_plane, shift):
+            km = _up(kind8, 8 >> shift)
+            out = rec_planes[8][idx_plane]
+            for k, bs_ in ((1, 16), (2, 32), (3, 64)):
+                out = torch.where(km == k, rec_planes[bs_][idx_plane], out)
+            return out
+
+        rec_y = select_plane(0, 0)
+        rec_u = select_plane(1, 1)
+        rec_v = select_plane(2, 1)
+
+        # --- level pack: per 8x8 cell, the SELECTED leaf's tiles --------
+        def pack_cells(pidx, t):
+            return kpick({i: _tiles8(levels[bs_][pidx], t)
+                          for i, bs_ in enumerate(SIZES64)}, torch.int16)
+
+        ly_pack = pack_cells(0, 8)
+        lu_pack = pack_cells(1, 4)
+        lv_pack = pack_cells(2, 4)
+
+        # --- in-loop filters over the mi-grid region (the decoder filters
+        # exactly [ph_mi, pw_mi]; the pad margin is edge-replicated) ----
+        crop = lambda p2, sh: p2[: ph_mi >> sh, : pw_mi >> sh]
+        cy, cu, cv = crop(rec_y, 0), crop(rec_u, 1), crop(rec_v, 1)
+        sz8 = size8[: ph_mi // 8, : pw_mi // 8].to(torch.int32)
+        idx_sb = torch.zeros((-(-ph_mi // 64), -(-pw_mi // 64)),
+                             dtype=torch.uint8, device=dev)
+        upy = _up(sz8, 8)
+        upc = _up(sz8 >> 1, 4)
+        cy = DB.deblock_plane(cy, upy, lf_levels[0], lf_levels[1], True,
+                              bd=bd)
+        cu = DB.deblock_plane(cu, upc, lf_levels[2], lf_levels[2], False,
+                              bd=bd)
+        cv = DB.deblock_plane(cv, upc, lf_levels[3], lf_levels[3], False,
+                              bd=bd)
+
+        if cdef:
+            # per-8x8-unit skip: the selected LEAF has all-zero levels
+            def skipmap(lv3, rep):
+                z = ((lv3[0] == 0).all(-1).all(-1)
+                     & (lv3[1] == 0).all(-1).all(-1)
+                     & (lv3[2] == 0).all(-1).all(-1))
+                return _up(z, rep)
+
+            sk = kpick({i: skipmap(levels[bs_], bs_ // 8)
+                        for i, bs_ in enumerate(SIZES64)},
+                       torch.bool)[: sz8.shape[0], : sz8.shape[1]]
+            damping = CD.pick_damping(q)
+            (cy, cu, cv), idx_sb = CD.cdef_search_and_apply(
+                (cy, cu, cv), (crop(sy, 0), crop(su, 1), crop(sv, 1)), sk,
+                damping)
+            idx_sb = idx_sb.to(torch.uint8)
+
+        repad = lambda core, like: MC.edge_pad(
+            core, 0, like.shape[0] - core.shape[0], 0,
+            like.shape[1] - core.shape[1]).to(torch.uint8)
+        out = (size8, mv_sel, ly_pack, lu_pack, lv_pack,
+               repad(cy, rec_y), repad(cu, rec_u), repad(cv, rec_v), idx_sb)
+        if nrefs >= 2:
+            out = out + (ref8,)
+        if compound:
+            out = out + (mv2_sel,)
+        return out
+
+    def mc_one(padded, pidx, chroma, bs2, pad2, mvs, mvs_c, sel):
+        """Subpel MC of every block of one size on one plane: ref0's
+        prediction, replaced by reference i where sel == i and by the
+        compound average of ref0 (at mvs) and ref1 (at mvs_c) where
+        sel == nrefs.  The compound reuses ref0's patch gather and its
+        convolution (both=True)."""
+        pt, r0, c0 = _gather_mc_patch(padded[0][pidx], mvs, bs2, pad2, chroma)
+        if compound:
+            out, m0 = _interp_patch(pt, r0, c0, bs2, bd, filt, both=True)
+        else:
+            out = _interp_patch(pt, r0, c0, bs2, bd, filt)
+        for i in range(1, nrefs):
+            pi = _mc_patch(padded[i][pidx], mvs, bs2, pad2, chroma, bd,
+                           filt=filt)
+            out = torch.where((sel == i)[..., None, None], pi, out)
+        if compound:
+            m1 = _mc_patch(padded[1][pidx], mvs_c, bs2, pad2, chroma, bd,
+                           jnt=True, filt=filt)
+            out = torch.where((sel == nrefs)[..., None, None],
+                              MC.jnt_average(m0, m1, bd), out)
+        return out
+
+    def _rd_decide(sy, su, sv, padded, per_ref, mv, cost, q, lam, ac, ins):
+        """The RD presets' decision: 64x64 candidates per reference, the
+        per-size argmin over the references and the compound candidate,
+        residual coding of every leaf size against its own prediction,
+        and the bottom-up float32 RD merge.  Returns (use16, use32,
+        use64, {"levels", "rec", "mv", "sel", "mv2"} per size)."""
+        src_of = {bs: _block(sy, bs) for bs in SIZES64}
+
+        def me64(i, mv32):
+            """64x64 leaf candidates: the four 32x32 children's refined
+            MVs, each evaluated on the whole 64 block."""
+            prior64 = per_ref[i][2][64] * 8
+            best_mv = best_cost = None
+            for dr in (0, 1):
+                for dc in (0, 1):
+                    mvc = mv32[dr::2, dc::2]
+                    pred = _mc_patch(padded[i][0], mvc, 64, pad, False, bd,
+                                     filt=filt)
+                    c = ((src_of[64] - pred).abs().sum((-1, -2),
+                                                        dtype=torch.int32)
+                         + ((lam * ME.mv_rate_bits(mvc - prior64)) >> 4))
+                    if best_mv is None:
+                        best_mv, best_cost = mvc, c
+                    else:
+                        better = c < best_cost
+                        best_mv = torch.where(better[..., None], mvc, best_mv)
+                        best_cost = torch.minimum(c, best_cost)
+            return best_mv, best_cost
+
+        mv[64], cost[64] = me64(0, mv[32])
+        sel = {bs: None for bs in SIZES64}
+        mv_c = {bs: None for bs in SIZES64}    # compound second (bwd) MV
+        if nrefs >= 2:
+            mvs_all, costs_all = [mv], [cost]
+            for i in range(1, nrefs):
+                mvi, costi = dict(per_ref[i][0]), dict(per_ref[i][1])
+                mvi[64], costi[64] = me64(i, mvi[32])
+                mvs_all.append(mvi)
+                costs_all.append(costi)
+            for bs in SIZES64:
+                s = torch.zeros(costs_all[0][bs].shape, dtype=torch.uint8,
+                                device=sy.device)
+                best_c, best_mv = costs_all[0][bs], mvs_all[0][bs]
+                for i in range(1, nrefs):
+                    better = costs_all[i][bs] < best_c
+                    s = torch.where(better, i, s).to(torch.uint8)
+                    best_c = torch.minimum(costs_all[i][bs], best_c)
+                    best_mv = torch.where(better[..., None], mvs_all[i][bs],
+                                          best_mv)
+                if compound:
+                    # COMPOUND_AVERAGE candidate from the per-ref best MVs
+                    mid0 = _mc_patch(padded[0][0], mvs_all[0][bs], bs, pad,
+                                     False, bd, jnt=True, filt=filt)
+                    mid1 = _mc_patch(padded[1][0], mvs_all[1][bs], bs, pad,
+                                     False, bd, jnt=True, filt=filt)
+                    pred_c = MC.jnt_average(mid0, mid1, bd)
+                    rate = (ME.mv_rate_bits(mvs_all[0][bs]
+                                            - per_ref[0][2][bs] * 8)
+                            + ME.mv_rate_bits(mvs_all[1][bs]
+                                              - per_ref[1][2][bs] * 8)
+                            + COMP_EXTRA_BITS)
+                    cost_c = ((src_of[bs] - pred_c).abs().sum(
+                        (-1, -2), dtype=torch.int32) + ((lam * rate) >> 4))
+                    use_c = cost_c < best_c
+                    sel[bs] = torch.where(use_c, nrefs, s).to(torch.uint8)
+                    mv[bs] = torch.where(use_c[..., None], mvs_all[0][bs],
+                                         best_mv)
+                    mv_c[bs] = mvs_all[1][bs]
+                else:
+                    sel[bs] = s
+                    mv[bs] = best_mv
+
+        # --- per-size MC + residual coding + RD cost: J = SSE of the
+        # recon (all planes) + lambda_rd * (coefficient + MV + mode bits),
+        # lambda_rd ~ 0.25 qstep^2, in float32 as the reference evaluates
+        # it (one fused multiply-add, pipeline/rdo.py) -----------------
+        lam_rd = float(max(4, (ac * ac) >> 8))         # exact in float32
+        levels, rec, jcost = {}, {}, {}
+        for bs in SIZES64:
+            cbs = bs // 2
+            su_b, sv_b = _block(su, cbs), _block(sv, cbs)
+            pred_y = mc_one(padded, 0, False, bs, pad, mv[bs], mv_c[bs],
+                            sel[bs])
+            pred_u = mc_one(padded, 1, True, cbs, cpad, mv[bs], mv_c[bs],
+                            sel[bs])
+            pred_v = mc_one(padded, 2, True, cbs, cpad, mv[bs], mv_c[bs],
+                            sel[bs])
+            base_r = ME.mv_rate_bits(mv[bs] - per_ref[0][2][bs] * 8) \
+                + mode_bits
+            if compound:
+                base_r = base_r + torch.where(
+                    sel[bs] == nrefs,
+                    ME.mv_rate_bits(mv_c[bs] - per_ref[1][2][bs] * 8)
+                    + COMP_EXTRA_BITS, 0)
+            ly, rec_y = _encode_plane(src_of[bs], pred_y, q, TX_OF[bs], bd)
+            lu, rec_u = _encode_plane(su_b, pred_u, q, TX_OF_C[bs], bd)
+            lv, rec_v = _encode_plane(sv_b, pred_v, q, TX_OF_C[bs], bd)
+            sse = lambda a, b: ((a - b) ** 2).sum((-1, -2), dtype=torch.int32)
+            d = sse(src_of[bs], rec_y) + sse(su_b, rec_u) + sse(sv_b, rec_v)
+            r = _coeff_bits(ly) + _coeff_bits(lu) + _coeff_bits(lv) + base_r
+            jcost[bs] = RDO.fma_f32(lam_rd, r.to(torch.float32),
+                                    d.to(torch.float32))
+            levels[bs] = (ly.to(torch.int16), lu.to(torch.int16),
+                          lv.to(torch.int16))
+            rec[bs] = (_unblock(rec_y), _unblock(rec_u), _unblock(rec_v))
+
+        use16, use32, use64, _ = rd_merge(jcost, lam_rd, ins)
+        return use16, use32, use64, {"levels": levels, "rec": rec, "mv": mv,
+                                     "sel": sel, "mv2": mv_c}
+
+    def _fast_refine_code(sy, su, sv, padded, per_ref, per_ref_mv, kind8,
+                          kpick, sq_cells, q, lam):
+        """Preset 8 after the merge: one quarter-pel refinement per 8x8
+        cell and reference against the true reference (each LEAF picks
+        the candidate minimizing the sum of its cells' SADs + MV rate),
+        the per-cell reference / compound choice, MC at cell granularity
+        and residual coding at every leaf size.  Returns (mv_sel, ref8,
+        mv2_sel, levels, rec) per size."""
+        dev = sy.device
         leaf_cells = lambda d: kpick({ki: _up(d[bs_], bs_ // 8)
                                       for ki, bs_ in enumerate(SIZES64)},
                                      d[8].dtype)
-
-        # --- merged-cell quarter-pel refinement, per reference: each cell
-        # anchors at its leaf's full-pel winner; a shared 25-candidate
-        # lattice is scored per cell against the TRUE reference, and each
-        # LEAF picks the candidate minimizing the sum of its cells' SADs
-        # (+ MV rate) ---------------------------------------------------
         dyx_c = torch.tensor(cand, dtype=torch.int32, device=dev)
         src8T = _block(sy, 8).reshape(-1, 8, 8).permute(1, 2, 0).to(
             torch.int16)
@@ -588,8 +850,11 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                                         nrefs, s).to(torch.uint8)
                 sel_l[bs] = s
             ref8 = leaf_cells(sel_l)
-            mv_sel = torch.where((ref8 == 1)[..., None], ref_fine[1][0],
-                                 ref_fine[0][0]).to(torch.int16)
+            mv_sel = ref_fine[0][0]
+            for i in range(1, nrefs):
+                mv_sel = torch.where((ref8 == i)[..., None], ref_fine[i][0],
+                                     mv_sel)
+            mv_sel = mv_sel.to(torch.int16)
             if compound:
                 mv2_sel = ref_fine[1][0].to(torch.int16)
 
@@ -597,33 +862,16 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         # interpolation is translation-invariant, so MCing a leaf equals
         # MCing its 8x8 luma / 4x4 chroma cells with the same MV) -------
         mv32 = mv_sel.to(torch.int32)
-
-        def mc_one(pidx, chroma, bs2, pad2):
-            # compound reuses ref0's patch gather AND its convolution
-            # (both=True): regular + CONV_BUF outputs from one pass
-            pt, r0, c0 = _gather_mc_patch(padded[0][pidx], mv32, bs2, pad2,
-                                          chroma)
-            if compound:
-                out, m0 = _interp_patch(pt, r0, c0, bs2, bd, filt, both=True)
-            else:
-                out = _interp_patch(pt, r0, c0, bs2, bd, filt)
-            if nrefs == 2:
-                p1 = _mc_patch(padded[1][pidx], mv32, bs2, pad2, chroma, bd,
-                               filt=filt)
-                out = torch.where((ref8 == 1)[..., None, None], p1, out)
-            if compound:
-                m1 = _mc_patch(padded[1][pidx], mv2_sel.to(torch.int32), bs2,
-                               pad2, chroma, bd, jnt=True, filt=filt)
-                out = torch.where((ref8 == 2)[..., None, None],
-                                  MC.jnt_average(m0, m1, bd), out)
-            return _unblock(out)
-
-        pred_y_pl = mc_one(0, False, 8, pad)
-        pred_u_pl = mc_one(1, True, 4, cpad)
-        pred_v_pl = mc_one(2, True, 4, cpad)
+        mv32c = None if mv2_sel is None else mv2_sel.to(torch.int32)
+        pred_y_pl = _unblock(mc_one(padded, 0, False, 8, pad, mv32, mv32c,
+                                    ref8))
+        pred_u_pl = _unblock(mc_one(padded, 1, True, 4, cpad, mv32, mv32c,
+                                    ref8))
+        pred_v_pl = _unblock(mc_one(padded, 2, True, 4, cpad, mv32, mv32c,
+                                    ref8))
 
         # --- residual coding at every size against the selected pred ----
-        levels, rec_planes = {}, {}
+        levels, rec = {}, {}
         for bs in SIZES64:
             cbs = bs // 2
             ly, rec_y = _encode_plane(_block(sy, bs), _block(pred_y_pl, bs),
@@ -636,75 +884,39 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                                       TX_OF_C[bs], bd)
             levels[bs] = (ly.to(torch.int16), lu.to(torch.int16),
                           lv.to(torch.int16))
-            rec_planes[bs] = (_unblock(rec_y), _unblock(rec_u),
-                              _unblock(rec_v))
-
-        # --- final recon: per-cell select of the chosen leaf's recon -----
-        def select_plane(idx_plane, shift):
-            km = _up(kind8, 8 >> shift)
-            out = rec_planes[8][idx_plane]
-            for k, bs_ in ((1, 16), (2, 32), (3, 64)):
-                out = torch.where(km == k, rec_planes[bs_][idx_plane], out)
-            return out
-
-        rec_y = select_plane(0, 0)
-        rec_u = select_plane(1, 1)
-        rec_v = select_plane(2, 1)
-
-        # --- level pack: per 8x8 cell, the SELECTED leaf's tiles --------
-        def pack_cells(pidx, t):
-            return kpick({i: _tiles8(levels[bs_][pidx], t)
-                          for i, bs_ in enumerate(SIZES64)}, torch.int16)
-
-        ly_pack = pack_cells(0, 8)
-        lu_pack = pack_cells(1, 4)
-        lv_pack = pack_cells(2, 4)
-
-        # --- in-loop filters over the mi-grid region (the decoder filters
-        # exactly [ph_mi, pw_mi]; the pad margin is edge-replicated) ----
-        crop = lambda p2, sh: p2[: ph_mi >> sh, : pw_mi >> sh]
-        cy, cu, cv = crop(rec_y, 0), crop(rec_u, 1), crop(rec_v, 1)
-        sz8 = size8[: ph_mi // 8, : pw_mi // 8].to(torch.int32)
-        idx_sb = torch.zeros((-(-ph_mi // 64), -(-pw_mi // 64)),
-                             dtype=torch.uint8, device=dev)
-        upy = _up(sz8, 8)
-        upc = _up(sz8 >> 1, 4)
-        cy = DB.deblock_plane(cy, upy, lf_levels[0], lf_levels[1], True,
-                              bd=bd)
-        cu = DB.deblock_plane(cu, upc, lf_levels[2], lf_levels[2], False,
-                              bd=bd)
-        cv = DB.deblock_plane(cv, upc, lf_levels[3], lf_levels[3], False,
-                              bd=bd)
-
-        if cdef:
-            # per-8x8-unit skip: the selected LEAF has all-zero levels
-            def skipmap(lv3, rep):
-                z = ((lv3[0] == 0).all(-1).all(-1)
-                     & (lv3[1] == 0).all(-1).all(-1)
-                     & (lv3[2] == 0).all(-1).all(-1))
-                return _up(z, rep)
-
-            sk = kpick({i: skipmap(levels[bs_], bs_ // 8)
-                        for i, bs_ in enumerate(SIZES64)},
-                       torch.bool)[: sz8.shape[0], : sz8.shape[1]]
-            damping = CD.pick_damping(q)
-            (cy, cu, cv), idx_sb = CD.cdef_search_and_apply(
-                (cy, cu, cv), (crop(sy, 0), crop(su, 1), crop(sv, 1)), sk,
-                damping)
-            idx_sb = idx_sb.to(torch.uint8)
-
-        repad = lambda core, like: MC.edge_pad(
-            core, 0, like.shape[0] - core.shape[0], 0,
-            like.shape[1] - core.shape[1]).to(torch.uint8)
-        out = (size8, mv_sel, ly_pack, lu_pack, lv_pack,
-               repad(cy, rec_y), repad(cu, rec_u), repad(cv, rec_v), idx_sb)
-        if nrefs >= 2:
-            out = out + (ref8,)
-        if compound:
-            out = out + (mv2_sel,)
-        return out
+            rec[bs] = (_unblock(rec_y), _unblock(rec_u), _unblock(rec_v))
+        return mv_sel, ref8, mv2_sel, levels, rec
 
     return step
+
+
+def rd_merge(jcost: dict, lam_rd: float, ins: dict):
+    """The RD presets' bottom-up partition merge (square leaves only):
+    at each node the whole block (J + lambda_rd * PARTITION_NONE bits,
+    only inside the frame) against its four children's best J +
+    lambda_rd * PARTITION_SPLIT bits, in the reference's float32
+    evaluation (pipeline/rdo.py).
+
+    jcost: {bs: [ph/bs, pw/bs] float32 leaf J}; lam_rd: float32-valued;
+    ins: {16/32/64: bool inside masks}.  Returns (use16, use32, use64,
+    {name: float32 map} — the j8 / j_split / j_at maps, for tests)."""
+    none_j = {bs: RDO.scalar_product_f32(lam_rd, _PART_BITS[bs][0])
+              for bs in SIZES64}
+    split_j = {bs: RDO.scalar_product_f32(lam_rd, _PART_BITS[bs][1])
+               for bs in (16, 32, 64)}
+    inf = RDO.f32_scalar(3e38)
+    j_at = jcost[8] + none_j[8]
+    maps = {"j8": j_at}
+    use = {}
+    for bs in (16, 32, 64):
+        j_split = RDO.sum4_f32(j_at, bs == 16) + split_j[bs]
+        j_bs = torch.where(ins[bs], jcost[bs] + none_j[bs], inf)
+        use[bs] = j_bs <= j_split
+        j_at = torch.where(use[bs], j_bs, j_split)
+        maps[f"j_split{bs}"] = j_split
+        maps[f"j{bs}"] = j_bs
+        maps[f"j_at{bs}"] = j_at
+    return use[16], use[32], use[64] & ins[64], maps
 
 
 def _blocksum2(lat):
@@ -734,10 +946,13 @@ def build_p_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
 @functools.lru_cache(maxsize=6)
 def build_b_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
                               cdef: bool = False, compound: bool = False,
-                              bd: int = 8, filt: int = 0):
-    """The two-reference step for one geometry: step(sy, su, sv,
-    r0_y, r0_u, r0_v, r1_y, r1_u, r1_v, qindex, lf_y, lf_u, lf_v);
-    compound=True adds the COMPOUND_AVERAGE of (ref0, ref1) (counterpart
-    of the reference's jitted build_b_frame_encoder_dyn)."""
-    return p_frame_step(ph, pw, mi_rows, mi_cols, nrefs=2, compound=compound,
-                        bd=bd, filt=filt, cdef=cdef)
+                              bd: int = 8, filt: int = 0, rdo: bool = False,
+                              nrefs: int = 2):
+    """The multi-reference step for one geometry: step(sy, su, sv,
+    r0_y, r0_u, r0_v, r1_y, r1_u, r1_v[, r2_y, r2_u, r2_v], qindex, lf_y,
+    lf_u, lf_v); compound=True adds the COMPOUND_AVERAGE of (ref0, ref1),
+    nrefs=3 a third single-prediction reference (counterpart of the
+    reference's jitted build_b_frame_encoder_dyn)."""
+    return p_frame_step(ph, pw, mi_rows, mi_cols, nrefs=nrefs,
+                        compound=compound, bd=bd, rdo=rdo, filt=filt,
+                        cdef=cdef)

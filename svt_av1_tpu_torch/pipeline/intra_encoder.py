@@ -1,8 +1,10 @@
 """Intra frame encoder in PyTorch: wavefront sweeps of batched blocks.
 
-Port of svt_av1_tpu/pipeline/intra_encoder.py (``frame_step`` with
-rich=False, ibc=False: preset 8, uniform 8x8 luma / 4x4 chroma blocks,
-13 base luma modes, DC chroma, DCT residuals).
+Port of svt_av1_tpu/pipeline/intra_encoder.py with rich=False,
+ibc=False: ``frame_step`` (preset 8: uniform 8x8 luma / 4x4 chroma
+blocks) and ``frame_step16`` (presets 6-7: 16x16 units that keep the
+16x16 block or split into four 8x8 blocks by RD cost); 13 base luma
+modes, DC chroma, DCT residuals.
 
 A block predicts from its reconstructed above/left (and above-right)
 neighbours, so blocks are coded in staircase-diagonal order d = 2r + c:
@@ -20,9 +22,12 @@ import functools
 import numpy as np
 import torch
 
+from svt_av1_tpu_torch import tables as _tbl
 from svt_av1_tpu_torch.ops import intra
 from svt_av1_tpu_torch.ops import quant as Q
 from svt_av1_tpu_torch.ops import transforms as T
+from svt_av1_tpu_torch.pipeline import rdo as RDO
+from svt_av1_tpu_torch.pipeline.inter_encoder import _coeff_bits
 
 LUMA_BS = 8
 CHROMA_BS = 4
@@ -150,6 +155,258 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
             trim(lv).to(torch.int16),
             trim(ry).to(torch.uint8), trim(ru).to(torch.uint8),
             trim(rv).to(torch.uint8))
+
+
+# --- multi-size keyframe wavefront (presets 6-7) ----------------------------
+# Per-leaf overheads of the in-loop partition RD select (J = SSE +
+# lambda * bits, the inter RD merge's lambda model), from the default CDF
+# tables (pipeline/rdo.py): intra leaf = skip + expected kf-y-mode +
+# uv-mode entropy; partition symbols from the size-16 / size-8 rows.
+MODE_BITS_I = RDO.intra_leaf_bits()
+PART_NONE_I = RDO.partition_bits()[8][0]
+PART_SPLIT_I = RDO.partition_bits()[16][1]
+_PART_NONE16_I = RDO.partition_bits()[16][0]
+
+
+@functools.lru_cache(maxsize=8)
+def _static_maps16(nbh: int, nbw: int, device: torch.device):
+    """The 16x16-unit wavefront's tables on ``device``: 8x8 above-right
+    / below-left availability, the unit grid's (its above-right only
+    where the whole 16px strip exists: partial strips would need the
+    spec's numTopRight replication), and the units that lie wholly
+    inside the block grid (the only ones a 16x16 leaf may take); each
+    padded with an invalid row/col."""
+    nuh, nuw = -(-nbh // 2), -(-nbw // 2)
+    ar8, bl8 = intra.edge_availability(nbh, nbw)
+    arU, blU = intra.edge_availability(nuh, nuw, per_sb=4)
+    legal = np.zeros((nuh, nuw), bool)
+    legal[: nbh // 2, : nbw // 2] = True
+    strip = np.zeros((nuh, nuw), bool)
+    for ci in range(nuw):
+        strip[:, ci] = (2 * ci + 3) < nbw
+
+    def pad(t):
+        p = np.zeros((t.shape[0] + 1, t.shape[1] + 1), bool)
+        p[: t.shape[0], : t.shape[1]] = t
+        return torch.as_tensor(p, device=device)
+
+    return pad(ar8), pad(bl8), pad(arU & strip), pad(blU), pad(legal)
+
+
+def _rd_cost(sse, bits_f32, lam: float):
+    """J = float32(sse) + lam * bits as XLA:CPU evaluates it (one fused
+    multiply-add; pipeline/rdo.fma_f32)."""
+    return RDO.fma_f32(lam, bits_f32, sse.to(torch.float32))
+
+
+def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
+    """16x16-unit keyframe wavefront with the in-loop RD partition
+    select of the RD presets (port of the reference package's
+    frame_step16 with rich=False).
+
+    Each staircase diagonal of 16x16 units runs five batched encodes:
+    the four 8x8 sub-blocks in z-order (each the frame_step body: all 13
+    luma modes, DC chroma) and the whole 16x16 block (TX_16X16 luma /
+    TX_8X8 chroma); a unit keeps the 16x16 block where its J is at most
+    the four sub-blocks' J plus the split overhead, and the unit lies
+    inside the block grid.  J = SSE (all planes) + lambda * bits in
+    float32, evaluated as the reference does (pipeline/rdo.py).
+
+    sy [nbh,nbw,8,8], su/sv [nbh,nbw,4,4] source blocks; qindex a Python
+    int.  -> frame_step's tuple + (angle deltas [nbh,nbw] i8 (0),
+    uv modes u8 (DC), cfl alphas [nbh,nbw,2] i8 (0), sizes [nbh,nbw] u8
+    (8 or 16 per 8x8 cell), levels16_y [nuh,nuw,16,16] i16,
+    levels16_u / levels16_v [nuh,nuw,8,8] i16 (zero where the unit
+    split)) — the reference's dynamic-q output tuple.
+    """
+    if bd != 8:
+        raise NotImplementedError("bit_depth=10 is not ported")
+    dev = sy.device
+    nbh, nbw = sy.shape[:2]
+    nuh, nuw = -(-nbh // 2), -(-nbw // 2)
+    BU = min(nuh, (nuw + 1) // 2)
+    ndiag = 2 * nuh + nuw - 2
+    cands = tuple(intra.ALL_MODES)
+    _, _, mode_ids, d203 = _static_maps(nbh, nbw, dev)
+    ar8_pad, bl8_pad, arU_pad, blU_pad, legal_pad = _static_maps16(
+        nbh, nbw, dev)
+    ac = int(_tbl.spec_tables()[f"ac_qlookup_{bd}"][qindex])
+    lam = float(max(4, (ac * ac) >> 8))            # exact in float32
+    split_j = RDO.scalar_product_f32(lam, PART_SPLIT_I + 4 * PART_NONE_I)
+    mode_f = RDO.f32_scalar(MODE_BITS_I)
+    none16_f = RDO.f32_scalar(_PART_NONE16_I)
+
+    sy = sy.to(torch.int32)
+    su = su.to(torch.int32)
+    sv = sv.to(torch.int32)
+    z = lambda h, w, bs: torch.zeros((h + 1, w + 1, bs, bs),
+                                     dtype=torch.int32, device=dev)
+    ry, ru, rv = z(nbh, nbw, LUMA_BS), z(nbh, nbw, CHROMA_BS), \
+        z(nbh, nbw, CHROMA_BS)
+    ly8, lu8, lv8 = z(nbh, nbw, LUMA_BS), z(nbh, nbw, CHROMA_BS), \
+        z(nbh, nbw, CHROMA_BS)
+    ly16, lu16, lv16 = z(nuh, nuw, 16), z(nuh, nuw, 8), z(nuh, nuw, 8)
+    modes = torch.zeros((nbh + 1, nbw + 1), dtype=torch.int32, device=dev)
+    size8 = torch.full((nbh + 1, nbw + 1), 8, dtype=torch.int32, device=dev)
+    ar_u = torch.arange(BU, device=dev)
+    zero_f = torch.zeros((BU,), dtype=torch.float32, device=dev)
+
+    def chroma_dc(su_b, sv_b, cp_u, cp_v, tx_c):
+        """DC chroma (the one uv candidate without the rich set): levels,
+        recon, SSE and coefficient bits of both planes."""
+        lu_, ru_ = _encode_plane_batch(su_b, cp_u, qindex, tx_c, bd)
+        lv_, rv_ = _encode_plane_batch(sv_b, cp_v, qindex, tx_c, bd)
+        sse = (((su_b - ru_) ** 2).sum((-1, -2), dtype=torch.int32)
+               + ((sv_b - rv_) ** 2).sum((-1, -2), dtype=torch.int32))
+        return lu_, ru_, lv_, rv_, sse, _coeff_bits(lu_) + _coeff_bits(lv_)
+
+    def luma_pick(preds, src, bl_avail):
+        sse = ((preds - src[:, None]) ** 2).sum((-1, -2), dtype=torch.int32)
+        sse = sse + (d203[None, :] & bl_avail[:, None]).to(torch.int32) \
+            * (1 << 30)
+        best = torch.argmin(sse, dim=1)
+        return best, preds[torch.arange(preds.shape[0], device=dev), best]
+
+    def enc8(rb, cb, valid_s):
+        """One 8x8 sub-block batch (the frame_step body at the given
+        coordinates); updates the state, returns the lanes' J."""
+        ha = (rb < nbh) & (rb > 0) & valid_s
+        hl = (cb < nbw) & (cb > 0) & valid_s
+        r_up = torch.where(ha, rb - 1, nbh)
+        c_lf = torch.where(hl, cb - 1, nbw)
+        rc = torch.clamp(rb, max=nbh - 1)
+        cc = torch.clamp(cb, max=nbw - 1)
+        ar_avail = ar8_pad[rb, cb]
+        c_ar = torch.where(ar_avail, torch.clamp(cb + 1, max=nbw), nbw)
+        preds = intra.predict_all_modes(
+            ry[r_up, cb, LUMA_BS - 1, :], ry[rb, c_lf, :, LUMA_BS - 1],
+            ry[r_up, c_lf, LUMA_BS - 1, LUMA_BS - 1], ha, hl, LUMA_BS,
+            LUMA_BS, bd, modes=cands,
+            above_ext=ry[r_up, c_ar, LUMA_BS - 1, :], ar_avail=ar_avail)
+        src = sy[rc, cc]
+        best, pred = luma_pick(preds, src, bl8_pad[rb, cb])
+        lvls, recon = _encode_plane_batch(src, pred, qindex, T.TX_8X8, bd)
+        ry[rb, cb] = recon
+        ly8[rb, cb] = lvls
+        modes[rb, cb] = mode_ids[best]
+        size8[rb, cb] = 8
+        cp = [intra.predict_all_modes(
+            rp[r_up, cb, CHROMA_BS - 1, :], rp[rb, c_lf, :, CHROMA_BS - 1],
+            rp[r_up, c_lf, CHROMA_BS - 1, CHROMA_BS - 1], ha, hl,
+            CHROMA_BS, CHROMA_BS, bd, modes=(intra.DC,))[:, 0]
+            for rp in (ru, rv)]
+        lu_, ru_, lv_, rv_, sse_c, bits_c = chroma_dc(
+            su[rc, cc], sv[rc, cc], cp[0], cp[1], T.TX_4X4)
+        ru[rb, cb] = ru_
+        lu8[rb, cb] = lu_
+        rv[rb, cb] = rv_
+        lv8[rb, cb] = lv_
+        sse_y = ((src - recon) ** 2).sum((-1, -2), dtype=torch.int32)
+        bits = (_coeff_bits(lvls) + bits_c).to(torch.float32) + mode_f
+        return _rd_cost(sse_y + sse_c, bits, lam)
+
+    def asm(g, ra, rb_, ca, cb_):
+        top = torch.cat([g[ra, ca], g[ra, cb_]], -1)
+        bot = torch.cat([g[rb_, ca], g[rb_, cb_]], -1)
+        return torch.cat([top, bot], -2)
+
+    for d in range(ndiag):
+        R = max(0, (d - nuw + 2) // 2) + ar_u
+        C = d - 2 * R
+        valid_u = (R < nuh) & (C >= 0) & (C < nuw)
+        Ru = torch.where(valid_u, R, nuh)
+        Cu = torch.where(valid_u, C, nuw)
+        r0 = torch.where(valid_u, R * 2, nbh)
+        c0 = torch.where(valid_u, C * 2, nbw)
+
+        # ---- four 8x8 sub-blocks in z-order ----
+        J8 = zero_f
+        subs = []
+        for (i, j) in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            valid_s = valid_u & (R * 2 + i < nbh) & (C * 2 + j < nbw)
+            rb = torch.where(valid_s, r0 + i, nbh)
+            cb = torch.where(valid_s, c0 + j, nbw)
+            J8 = J8 + torch.where(valid_s, enc8(rb, cb, valid_s), 0.0)
+            subs.append((rb, cb))
+        J8 = J8 + split_j
+
+        # ---- the 16x16 candidate ----
+        ha = (R > 0) & valid_u
+        hl = (C > 0) & valid_u
+        rup = torch.where(ha, r0 - 1, nbh)
+        clf = torch.where(hl, c0 - 1, nbw)
+        r1 = torch.clamp(r0 + 1, max=nbh)
+        c1 = torch.clamp(c0 + 1, max=nbw)
+        arU = arU_pad[Ru, Cu]
+        c_ar0 = torch.where(arU, torch.clamp(c0 + 2, max=nbw), nbw)
+        c_ar1 = torch.where(arU, torch.clamp(c0 + 3, max=nbw), nbw)
+        preds16 = intra.predict_all_modes(
+            torch.cat([ry[rup, c0, LUMA_BS - 1, :],
+                       ry[rup, c1, LUMA_BS - 1, :]], -1),
+            torch.cat([ry[r0, clf, :, LUMA_BS - 1],
+                       ry[r1, clf, :, LUMA_BS - 1]], -1),
+            ry[rup, clf, LUMA_BS - 1, LUMA_BS - 1], ha, hl, 16, 16, bd,
+            modes=cands,
+            above_ext=torch.cat([ry[rup, c_ar0, LUMA_BS - 1, :],
+                                 ry[rup, c_ar1, LUMA_BS - 1, :]], -1),
+            ar_avail=arU)
+        rc0 = torch.clamp(r0, max=nbh - 1)
+        cc0 = torch.clamp(c0, max=nbw - 1)
+        rc1 = torch.clamp(r0 + 1, max=nbh - 1)
+        cc1 = torch.clamp(c0 + 1, max=nbw - 1)
+        src16 = asm(sy, rc0, rc1, cc0, cc1)
+        best16, pred16 = luma_pick(preds16, src16, blU_pad[Ru, Cu])
+        l16y, rec16y = _encode_plane_batch(src16, pred16, qindex,
+                                           T.TX_16X16, bd)
+        m16 = mode_ids[best16]
+        cp16 = []
+        for rp in (ru, rv):
+            cp16.append(intra.predict_all_modes(
+                torch.cat([rp[rup, c0, CHROMA_BS - 1, :],
+                           rp[rup, c1, CHROMA_BS - 1, :]], -1),
+                torch.cat([rp[r0, clf, :, CHROMA_BS - 1],
+                           rp[r1, clf, :, CHROMA_BS - 1]], -1),
+                rp[rup, clf, CHROMA_BS - 1, CHROMA_BS - 1], ha, hl, 8, 8,
+                bd, modes=(intra.DC,))[:, 0])
+        l16u, r16u, l16v, r16v, sse_c16, bits_c16 = chroma_dc(
+            asm(su, rc0, rc1, cc0, cc1), asm(sv, rc0, rc1, cc0, cc1),
+            cp16[0], cp16[1], T.TX_8X8)
+        sse_y16 = ((src16 - rec16y) ** 2).sum((-1, -2), dtype=torch.int32)
+        bits16 = ((_coeff_bits(l16y) + bits_c16).to(torch.float32)
+                  + mode_f) + none16_f
+        J16 = _rd_cost(sse_y16 + sse_c16, bits16, lam)
+        use16 = legal_pad[Ru, Cu] & valid_u & (J16 <= J8)
+
+        # ---- writeback: the 16x16 block's cells where it wins ----
+        w = use16[:, None, None]
+        for k, (i, j) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            rb, cb = subs[k]
+            ry[rb, cb] = torch.where(
+                w, rec16y[:, i * 8: i * 8 + 8, j * 8: j * 8 + 8], ry[rb, cb])
+            ru[rb, cb] = torch.where(
+                w, r16u[:, i * 4: i * 4 + 4, j * 4: j * 4 + 4], ru[rb, cb])
+            rv[rb, cb] = torch.where(
+                w, r16v[:, i * 4: i * 4 + 4, j * 4: j * 4 + 4], rv[rb, cb])
+            modes[rb, cb] = torch.where(use16, m16, modes[rb, cb])
+            size8[rb, cb] = torch.where(use16, 16, size8[rb, cb])
+        ly16[Ru, Cu] = torch.where(w, l16y, 0)
+        lu16[Ru, Cu] = torch.where(w, l16u, 0)
+        lv16[Ru, Cu] = torch.where(w, l16v, 0)
+
+    trim = lambda a: a[:nbh, :nbw]
+    trimu = lambda a: a[:nuh, :nuw]
+    zeros8 = lambda *shape: torch.zeros(shape, dtype=torch.int8, device=dev)
+    return (trim(modes).to(torch.uint8),
+            trim(ly8).to(torch.int16), trim(lu8).to(torch.int16),
+            trim(lv8).to(torch.int16),
+            trim(ry).to(torch.uint8), trim(ru).to(torch.uint8),
+            trim(rv).to(torch.uint8),
+            zeros8(nbh, nbw),
+            torch.full((nbh, nbw), intra.DC, dtype=torch.uint8, device=dev),
+            zeros8(nbh, nbw, 2),
+            trim(size8).to(torch.uint8),
+            trimu(ly16).to(torch.int16), trimu(lu16).to(torch.int16),
+            trimu(lv16).to(torch.int16))
 
 
 def block_planes(plane, bs: int):

@@ -22,6 +22,7 @@ import functools
 import math
 
 import numpy as np
+import torch
 
 from svt_av1_tpu_torch.entropy.cdf_model import FrameContext
 
@@ -128,3 +129,60 @@ def intra_leaf_bits() -> float:
         ent += float(-(p * np.log2(p)).sum())
     uv_bits = ent / len(rows)
     return skip0 + y_bits + uv_bits
+
+
+# --- float32 arithmetic of the RD decisions ---------------------------------
+# The RD presets decide on J = float32(SSE) + lambda * bits.  The reference
+# package evaluates those expressions under XLA:CPU, which (measured with
+# tools/probe_xla_rd_order.py on an x86-64 AVX-512 CPU, jax 0.9.0)
+# contracts an array product feeding an add into one fused multiply-add,
+# rounds a product of two scalars (lambda times a Python-float rate
+# constant, weak-typed to float32) on its own before the add, and sums a
+# 2x2 block of float32 in an order that its vectorizer picks per merge
+# level and map width (sum4_f32).  The helpers below give those bits on
+# the CPU and on the card alike: each is a fixed sequence of IEEE
+# operations.
+
+def f32_scalar(x) -> float:
+    """A Python number rounded to float32 (JAX's weak typing of a Python
+    float constant against float32 arrays)."""
+    return float(np.float32(x))
+
+
+def scalar_product_f32(a, b) -> float:
+    """float32(a) * float32(b), rounded to float32: a product of two
+    scalars, which XLA:CPU computes on its own before any add."""
+    return float(np.float32(a) * np.float32(b))
+
+
+def fma_f32(a: float, b, c):
+    """float32 fused multiply-add ``a * b + c`` with one rounding (XLA:CPU
+    contracts ``c + a * b`` when b is an array).
+
+    a: a float32-valued Python float; b, c: float32 tensors.  The product
+    is exact in float64 (24 x 24 bits); the float64 sum is made
+    round-to-odd with its exact error (TwoSum), so the final rounding to
+    float32 equals the single rounding of the exact a * b + c."""
+    p = b.double() * a
+    cd = c.double()
+    s = p + cd
+    z = s - p
+    err = (p - (s - z)) + (cd - z)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, math.inf), err)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def sum4_f32(a, first_level: bool):
+    """[2H, 2W] float32 -> [H, W] 2x2 block sums in XLA:CPU's order for
+    the RD merge (the reference's ``_sum4``).  With a = top-left, b =
+    top-right, c = bottom-left, d = bottom-right: ((a + b) + c) + d,
+    except above the first merge level on a map whose width W is a power
+    of two, where the vectorized sum is (a + b) + (c + d)."""
+    a_, b_ = a[0::2, 0::2], a[0::2, 1::2]
+    c_, d_ = a[1::2, 0::2], a[1::2, 1::2]
+    w = a_.shape[1]
+    if not first_level and w & (w - 1) == 0:
+        return (a_ + b_) + (c_ + d_)
+    return ((a_ + b_) + c_) + d_

@@ -300,3 +300,78 @@ def test_cli_card_equals_cpu(cuda, tmp_path):
                              "--device", device]) == 0
         out[device] = (ivf.read_bytes(), rec.read_bytes())
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_rd_b_step_card_equals_cpu(cuda):
+    """The preset-6 step from three references with compound prediction
+    at 192x128: 80 gather launches, every output equal to the CPU
+    run's (the float32 RD merge included)."""
+    from _torch_rd import step_planes
+    from svt_av1_tpu_torch.pipeline import inter_encoder as TPE
+    src, refs = step_planes(3)
+    planes = [T_(np.ascontiguousarray(p)) for p in (*src, *refs)]
+    step = TPE.build_b_frame_encoder_dyn(128, 192, 32, 48, cdef=True,
+                                         compound=True, rdo=True, nrefs=3)
+    for q, lf in ((60, (6, 3, 3)), (200, (30, 12, 12))):
+        before = TG.gather_tiles.launches
+        card = step(*(p.to(cuda) for p in planes), q, *lf)
+        torch.cuda.synchronize()
+        assert TG.gather_tiles.launches - before == 80
+        cpu = step(*planes, q, *lf)
+        assert len(card) == len(cpu) == 11
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_rd_keyframe_wavefront_card_equals_cpu(cuda):
+    """frame_step16 (the RD presets' 16x16 keyframe search) at 200x136
+    on the card equals its CPU run, size map and 16x16 levels
+    included."""
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline import intra_encoder as TIE
+    f = synthetic_frame(200, 136, seed=9)
+    f.y[:, :64] = np.random.default_rng(9).integers(0, 256, (136, 64))
+    src = (TIE.block_planes(f.y, 8), TIE.block_planes(f.u, 4),
+           TIE.block_planes(f.v, 4))
+    for q in (40, 160):
+        card = TIE.frame_step16(*(T_(np.ascontiguousarray(p)).to(cuda)
+                                  for p in src), q)
+        cpu = TIE.frame_step16(*(T_(np.ascontiguousarray(p)) for p in src),
+                               q)
+        assert (cpu[10] == 16).any() and (cpu[10] == 8).any()
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
+# (plane dtype, bs, pad, reach, halo, off) of the preset-6 step's grid
+# sites at the 1080p geometry: the dense refine per size, the 64x64 MC
+# patch (me64, compound candidate, per-size MC) and the per-size MC's
+# largest chroma patch
+RD1080_SITES = [
+    (np.int32, 8, 17, 16, 8, -4),
+    (np.int32, 16, 17, 16, 8, -4),
+    (np.int32, 32, 17, 16, 8, -4),
+    (np.int32, 64, 17, 17, 7, -3),
+    (np.int32, 32, 9, 9, 7, -3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bs,pad,reach,halo,off", RD1080_SITES)
+def test_kernel_equals_plain_at_1080p_rd_sites(cuda, dtype, bs, pad, reach,
+                                               halo, off):
+    rng = np.random.default_rng(200 + bs + halo)
+    ph, pw = (1088, 1920) if pad == 17 else (544, 960)
+    nbh, nbw = ph // bs, pw // bs
+    plane = rng.integers(0, 256, (ph + 2 * pad + 7,
+                                  pw + 2 * pad + 7)).astype(dtype)
+    mv_r = rng.integers(-reach, reach + 1, (nbh, nbw)).astype(np.int32)
+    mv_c = rng.integers(-reach, reach + 1, (nbh, nbw)).astype(np.int32)
+    got = TG.gather_blocks_grid(T_(plane).to(cuda), T_(mv_r).to(cuda),
+                                T_(mv_c).to(cuda), bs, pad, reach,
+                                halo=halo, off=off)
+    want = TG.gather_blocks_grid(T_(plane), T_(mv_r), T_(mv_c), bs, pad,
+                                 reach, halo=halo, off=off)
+    assert torch.equal(got.cpu(), want)

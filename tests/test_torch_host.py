@@ -20,8 +20,8 @@ LDP = dict(width=128, height=64, intra_period=-1, pred_structure=0,
            scene_change_detection=False)
 
 GATES = [
-    ("RD presets", dict(enc_mode=7)),
-    ("multi_ref=1", dict(multi_ref=1)),
+    ("enc_mode<=5 (preset 5)", dict(enc_mode=5)),
+    ("enc_mode<=5 (preset 0)", dict(enc_mode=0)),
     ("bit_depth=10", dict(bit_depth=10)),
     ("enable_adaptive_quantization", dict(enable_adaptive_quantization=1)),
     ("only CQP", dict(rate_control_mode=2, target_bit_rate=1000)),
@@ -55,7 +55,9 @@ def test_unsupported_config_raises_by_name(label, extra):
                                    dict(scene_change_detection=True),
                                    dict(look_ahead_distance=4),
                                    dict(pred_structure=2,
-                                        scene_change_detection=True)])
+                                        scene_change_detection=True),
+                                   dict(enc_mode=7),
+                                   dict(multi_ref=1)])
 def test_slice_configs_pass(extra):
     check_slice(EncoderConfig(**{**LDP, **extra}))
 
@@ -64,7 +66,8 @@ def test_default_config_is_all_intra_and_allowed():
     check_slice(EncoderConfig(width=64, height=64))
 
 
-@pytest.mark.parametrize("kw", [dict(rdo=True), dict(nrefs=3),
+@pytest.mark.parametrize("kw", [dict(rdo=True, txs=True),
+                                dict(rdo=True, rect=True),
                                 dict(compound=True, nrefs=1), dict(bd=10),
                                 dict(lr=True), dict(aq=True)])
 def test_p_frame_step_refuses_unported_variants(kw):

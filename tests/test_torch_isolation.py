@@ -5,8 +5,9 @@ environment may preload jax at interpreter start), installs an import
 hook that refuses them, imports every module of svt_av1_tpu_torch (its
 CLI, svt_av1_tpu_torch.app.enc_app, included) and chip_smoke (without
 running it), and encodes a 64x64 IPPP clip, a 64x64 hierarchical-B clip
-with compound prediction and a 64x64 low-delay-B clip (through the
-Encoder and through the CLI) on the CPU end to end."""
+with compound prediction, a 64x64 hierarchical-B clip at preset 7 (the
+16x16 keyframe search, a three-reference frame) and a 64x64 low-delay-B
+clip (through the Encoder and through the CLI) on the CPU end to end."""
 
 import subprocess
 import sys
@@ -62,6 +63,12 @@ hier = list(Encoder(cfg.replace(pred_structure=2, hierarchical_levels=1),
 assert [(p.display_idx, p.show) for p in hier] == [
     (0, True), (2, False), (1, False), (1, True), (2, True), (3, False),
     (3, True)]
+rd = Encoder(cfg.replace(pred_structure=2, hierarchical_levels=2,
+                         enc_mode=7), device="cpu")
+rd_tus = list(rd.encode_all([synthetic_frame(64, 64, seed=i)
+                             for i in range(5)]))
+assert [p.display_idx for p in rd_tus if not p.show] == [4, 2, 1, 3]
+assert rd_tus[0].leaf16_cells and rd._nrefs3_frames == 1
 ldb = list(Encoder(cfg.replace(pred_structure=1), device="cpu").encode_all(
     [synthetic_frame(64, 64, seed=i) for i in range(3)]))
 assert [(p.is_keyframe, p.display_idx) for p in ldb] == [

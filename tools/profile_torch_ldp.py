@@ -2,10 +2,11 @@
 """Where the time goes in the port's encode on one GPU, per frame.
 
     python3 tools/profile_torch_ldp.py
-        [--config ldp-720p|hierb-1080p|ldb-1080p] [--frames N] [--out DIR]
+        [--config ldp-720p|hierb-1080p|ldb-1080p|rd-hierb-1080p]
+        [--frames N] [--out DIR]
 
-Configs (qp 40, preset 8, deblock + CDEF, the three main paths of
-chip_smoke.py):
+Configs (qp 40, deblock + CDEF, the main paths of chip_smoke.py; preset
+8 but for rd-hierb-1080p):
 
   ldp-720p     synthetic 1280x720 frames, low-delay P (IPPP): one
                keyframe, then N-1 P frames (--frames, default 4);
@@ -14,7 +15,9 @@ chip_smoke.py):
                frame + 7 B frames;
   ldb-1080p    the moving 1920x1080 clip, low-delay B with scene-change
                detection on: one keyframe, then N-1 LAST + GOLDEN
-               frames (--frames).
+               frames (--frames);
+  rd-hierb-1080p  hierb-1080p at the RD preset 6 (multi_ref=-1: display
+               1, 2, 3 and 5 coded from three references).
 
 For each frame (IPPP, LDB: send_picture + get_packet; hier-B: each
 coded inter frame, read around Encoder._dispatch_code) it reports:
@@ -49,6 +52,9 @@ CONFIGS = {
                         hierarchical_levels=3, compound_mode=1),
     "ldb-1080p": dict(width=1920, height=1080, pred_structure=1,
                       scene_change_detection=True),
+    "rd-hierb-1080p": dict(width=1920, height=1080, pred_structure=2,
+                           hierarchical_levels=3, compound_mode=1,
+                           enc_mode=6, multi_ref=-1),
 }
 
 
@@ -184,14 +190,18 @@ def main() -> int:
         enc = E.Encoder(EncoderConfig(**kw), device="cuda")
         dispatch = enc._dispatch_code
 
-        def profiled_code(step, frame, qindex, pins):
-            _, row = profiled(torch, G, host_s,
-                              lambda: dispatch(step, frame, qindex, pins))
+        def profiled_code(step, frame, qindex, *args, **kwargs):
+            n3 = enc._nrefs3_frames
+            _, row = profiled(torch, G, host_s, lambda: dispatch(
+                step, frame, qindex, *args, **kwargs))
+            nrefs = (1 if step.bwd is None
+                     else 3 if enc._nrefs3_frames > n3 else 2)
             row = dict(display=step.disp, layer=step.layer, qindex=qindex,
-                       kind="P" if step.bwd is None else "B", **row)
+                       kind="P" if step.bwd is None else "B", nrefs=nrefs,
+                       **row)
             rows.append(row)
-            report(f"display {step.disp} {row['kind']} layer {step.layer}",
-                   row)
+            report(f"display {step.disp} {row['kind']} layer {step.layer} "
+                   f"refs {nrefs}", row)
 
         enc._dispatch_code = profiled_code
         t = time.perf_counter()

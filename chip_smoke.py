@@ -13,9 +13,11 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
   3. kernel   — both designs of the tile-gather kernel (the main
                 path's and the first port's v1, a yardstick) against its
                 plain PyTorch version at every call-site shape of a
-                720p P frame and of a 1080p B frame, and at awkward
-                shapes (odd widths, edge and off-contract starts, three
-                dtypes), exact equality (tolerance 0);
+                720p P frame, of a 1080p B frame, of a 1080p preset-6 B
+                frame and of a 4K 10-bit preset-6 B frame (the 4K sites
+                also on int16 planes), and at awkward shapes (odd
+                widths, edge and off-contract starts, three dtypes),
+                exact equality (tolerance 0);
   4. main     — the 720p low-delay-P encode (1 keyframe + 7 P frames,
                 qp 40, preset 8) through Encoder.send_picture/get_packet;
                 the gather must launch 6 times per P frame;
@@ -41,7 +43,19 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 (display 1, 2, 3, 5), the gather must launch exactly 20 /
                 60 / 80 times for a frame of 1 / 2 / 3 references, and
                 the B frames must hold compound cells;
-  8. parity   — encoded on the card and on the CPU, each must give
+  8. main-VOD — bench.py:185's 4K 10-bit VOD config and clip
+                (3840x2160, 10-bit, qp 40, hierarchical_levels=3,
+                compound, preset 6, loop restoration, adaptive
+                quantization; io.yuv.vod_clip, 9 frames: a keyframe and
+                one mini-GOP): decode order, 16x16 keyframe leaves, 4
+                three-reference frames, 0 / 20 / 60 / 80 gathers per
+                frame of 0 / 1 / 2 / 3 references, restoration switched
+                on, AQ analysis on every inter frame, PSNR-Y (10-bit
+                peak) in range; per frame the wall ms split into device
+                step, host restoration, host analysis, host entropy and
+                the rest, bytes, PSNR-Y, the restoration type per plane,
+                gathers and peak device memory;
+  9. parity   — encoded on the card and on the CPU, each must give
                 byte-identical TUs and equal recon: a 320x192 IPPP clip
                 (1 keyframe + 2 P), a 192x128 hier-B clip (levels 2, 6
                 frames: a truncated span at flush), a 320x192 LDB clip,
@@ -49,12 +63,14 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 look-ahead window and push_qp overrides, and at the RD
                 presets a 192x128 hier-B clip (preset 6, levels 3, 9
                 frames, three-reference frames), a 320x192 IPPP clip and
-                a 320x192 LDB clip (preset 7); and the port's CLI
-                (--pred-struct 1 --tiles-log2 1 --qp-file; and hier-B at
-                --preset 7) run in this process at --device cuda and at
-                --device cpu on the same synthetic input must write
-                byte-identical IVF files;
-  9. timing   — at each call site, for both designs, one torch.take
+                a 320x192 LDB clip (preset 7), a 192x128 hier-B clip
+                with AQ 2 (per-SB delta-q) and the 4K VOD config at
+                200x136 (9 frames of its clip); and the port's CLI
+                (--pred-struct 1 --tiles-log2 1 --qp-file; hier-B at
+                --preset 7; IPPP at --bit-depth 10) run in this process
+                at --device cuda and at --device cpu on the same
+                synthetic input must write byte-identical IVF files;
+ 10. timing   — at each call site, for both designs, one torch.take
                 call and the plain version: event ms (CUDA events around
                 20 back-to-back calls) and host us per call (perf_counter
                 around 200 calls issued without a synchronise) at every
@@ -65,13 +81,15 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  For gather_tiles, launches counts the
-main-path launches of phases 4 to 7; ms, device_ms, host_us,
+main-path launches of phases 4 to 8; ms, device_ms, host_us,
 plain_ms, bound_ms and library_ms are sums over the six launches of one
 720p P frame, "per_1080p_b_frame" holds the same sums over the 13
 launches of one 1080p B frame, "per_1080p_ldb_frame" over the 10 of
 one 1080p LDB frame (the B frame's sites without the compound
 patches) and "per_1080p_rd_b_frame" over the 80 of one 1080p preset-6
-B frame coded from three references with compound prediction.  --out
+B frame coded from three references with compound prediction, and
+"per_4k_10bit_rd_b_frame" over the 80 of one 4K 10-bit preset-6 B
+frame of the same kind.  --out
 DIR also writes the per-shape and per-frame numbers to
 DIR/chip_smoke.json.  Imports neither JAX nor the JAX package.
 """
@@ -124,6 +142,14 @@ RD1080 = {"warp_by_centers": 3, "subpel_refine_dense_8": 3,
 # reference)
 RD_LAUNCHES = {1: 20, 2: 60, 3: sum(RD1080.values())}
 RD_NREFS = {8: 1, 4: 2, 2: 3, 1: 3, 3: 3, 6: 2, 5: 3, 7: 2}
+# bench.py:185 run_vod_4k10, "Config 4": its EncoderConfig and its clip
+# (io.yuv.vod_clip), 9 frames: a keyframe and one levels-3 mini-GOP
+W4K, H4K, N_VOD = 3840, 2160, 9
+VOD_KW = dict(width=W4K, height=H4K, qp=40, bit_depth=10, intra_period=-1,
+              pred_structure=2, hierarchical_levels=3, compound_mode=1,
+              enc_mode=6, enable_restoration=True,
+              enable_adaptive_quantization=True, recon_output=False,
+              scene_change_detection=False)
 
 
 def phase(name: str, t0: float) -> None:
@@ -176,17 +202,20 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
-def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False):
+def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False, bd=8):
     """(name, launches per frame on the main path, plane, base_r, base_c,
     gather_tiles kwargs) at the shapes every call site of per_frame has
     in a w x h frame (rd: the RD presets' sites — the per-size MC patches
-    and the dense refine — in place of the preset-8 grid sites).  Motion
-    is drawn uniformly within each site's reach."""
+    and the dense refine — in place of the preset-8 grid sites), with
+    bd-bit pixels in the main path's containers (u8, or int16 at 10 bits,
+    for the ME warp; int32 padded planes for the rest).  Motion is drawn
+    uniformly within each site's reach."""
     ph, pw = -(-h // 64) * 64, -(-w // 64) * 64    # 64-padded geometry
-    ry = torch.randint(0, 256, (ph, pw), generator=gen,
-                       dtype=torch.uint8).to(dev)
-    ru = torch.randint(0, 256, (ph // 2, pw // 2), generator=gen,
-                       dtype=torch.uint8).to(dev)
+    px = MC.pixel_dtype(bd)
+    ry = torch.randint(0, 1 << bd, (ph, pw), generator=gen,
+                       dtype=px).to(dev)
+    ru = torch.randint(0, 1 << bd, (ph // 2, pw // 2), generator=gen,
+                       dtype=px).to(dev)
     pad, cpad, search = 17, 9, 16
     py_pad = MC.pad_for_filter(ry, pad)
     pu_pad = MC.pad_for_filter(ru, cpad)
@@ -196,7 +225,7 @@ def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False):
                              dtype=torch.int32).to(dev)
 
     sites = []
-    # me.warp_by_centers: one 32x32 u8 tile per 32x32 cell
+    # me.warp_by_centers: one 32x32 pixel tile per 32x32 cell
     ref_pad = MC.edge_pad(ry, search, search, search, search)
     th, tw = ph // 32, pw // 32
     cen = mv((th, tw, 2), 13)
@@ -304,8 +333,9 @@ def exact(torch, got, want, what):
 
 def kernel_phase(torch, MC, G, dev):
     """Hold every gather design against gather_tiles_ref at each
-    call-site shape of a 720p P frame, of a 1080p B frame and of a 1080p
-    preset-6 B frame, and at the awkward shapes; returns the per-site
+    call-site shape of a 720p P frame, of a 1080p B frame, of a 1080p
+    preset-6 B frame and of a 4K 10-bit preset-6 B frame (its sites also
+    on int16 planes), and at the awkward shapes; returns the per-site
     records (with the byte bound) and the launches to time at each
     site."""
     gen = torch.Generator().manual_seed(0)
@@ -316,6 +346,8 @@ def kernel_phase(torch, MC, G, dev):
                                                  W1080, H1080, B1080)]
     sites += [("1080p RD B", s) for s in call_sites(
         torch, MC, G, gen, dev, W1080, H1080, RD1080, rd=True)]
+    sites += [("4K RD B", s) for s in call_sites(
+        torch, MC, G, gen, dev, W4K, H4K, RD1080, rd=True, bd=10)]
     for frame, (name, per_frame, plane, br, bc, kw) in sites:
         th, tw = kw["th"], kw["tw"]
         want = G.gather_tiles_ref(plane, br, bc, th, tw)
@@ -340,6 +372,14 @@ def kernel_phase(torch, MC, G, dev):
                          max_abs_err=err, bytes=nbytes,
                          bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
         timed.append(impls)
+    # the 4K sites again on int16 planes (10-bit pixels in the port's
+    # container; the path pads its MC and refine planes to int32)
+    for frame, (name, _, plane, br, bc, kw) in sites:
+        if frame == "4K RD B" and plane.dtype == torch.int32:
+            p16 = plane.to(torch.int16)
+            exact(torch, G.gather_tiles(p16, br, bc, **kw),
+                  G.gather_tiles_ref(p16, br, bc, kw["th"], kw["tw"]),
+                  f"main gather at {name}, int16 4K plane")
     for dt, hp, wp, th, tw, nbh, nbw in AWKWARD:
         dtype = getattr(torch, dt)
         plane = torch.randint(0, 256 if dt == "uint8" else 30000, (hp, wp),
@@ -486,6 +526,111 @@ def ldb_path(torch, G, svt, cfg_kw):
     return pkts, secs, launches
 
 
+def vod_path(torch, G, svt, cfg_kw, frames):
+    """The 4K 10-bit VOD config through the user entry points: a
+    keyframe, then one mini-GOP sent frame by frame and flushed.  Each
+    coded frame's wall time is read around Encoder._code_key_anchor /
+    _dispatch_code with the card synchronised, and split into the
+    device step (the keyframe wavefront and in-loop filters with the
+    fetch of its outputs, or the P / B step; synchronised), host
+    restoration (_lr_process), host picture analysis for AQ
+    (analysis.analyze: the analysis of frame d runs just before d is
+    coded and is charged to d, its wall time included) and host entropy
+    + OBUs (_make_packet / _make_inter_packet); the rest is the
+    device->host copies, the uploads and glue.  Returns (TUs in decode order,
+    {display index: record}, gather launches during the run, the
+    encoder)."""
+    from svt_av1_tpu_torch.pipeline import analysis as AN
+    from svt_av1_tpu_torch.pipeline import inter_encoder as PE
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    enc = Encoder(svt.EncoderConfig(**cfg_kw), device="cuda")
+    recs = {}
+    cur = [{}]                     # the record time is charged to
+
+    def timed(key, fn, sync):
+        def run(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            cur[0][key] = cur[0].get(key, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    def timed_builder(build):
+        return lambda *a, **kw: timed("step", build(*a, **kw), True)
+
+    def lr_process(frame, planes, deb):
+        out = lr_plain(frame, planes, deb)
+        cur[0]["lr_types"] = ["none" if p is None else
+                              {2: "wiener", 3: "sgrproj"}[p["type"]]
+                              for p in (out or [None] * 3)]
+        cur[0]["lr_units_on"] = sum(int(p["use"].sum()) for p in out or ()
+                                    if p is not None)
+        return out
+
+    def frame(disp, fn):
+        def run(*args, **kw):
+            rec = dict(cur[0])
+            pre = rec.pop("analysis", 0.0)     # ran just before the frame
+            rec["analysis_s"] = pre
+            cur[0] = rec
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n0 = G.gather_tiles.launches
+            t = time.perf_counter()
+            fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec["total_s"] = time.perf_counter() - t + pre
+            rec["gathers"] = G.gather_tiles.launches - n0
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            rec["analysis_s"] += rec.pop("analysis", 0.0)
+            recs[disp(args)] = rec
+            cur[0] = {}
+        return run
+
+    saved = (AN.analyze, PE.build_p_frame_encoder_dyn,
+             PE.build_b_frame_encoder_dyn)
+    lr_plain = enc._lr_process
+    AN.analyze = timed("analysis", AN.analyze, False)
+    PE.build_p_frame_encoder_dyn = timed_builder(saved[1])
+    PE.build_b_frame_encoder_dyn = timed_builder(saved[2])
+    enc._lr_process = timed("lr", lr_process, False)
+    enc._intra_dispatch = timed("step", enc._intra_dispatch, True)
+    enc._make_packet = timed("entropy", enc._make_packet, False)
+    enc._make_inter_packet = timed("entropy", enc._make_inter_packet, False)
+    enc._code_key_anchor = frame(lambda a: a[0], enc._code_key_anchor)
+    enc._dispatch_code = frame(lambda a: a[0].disp, enc._dispatch_code)
+    G.gather_tiles.launches = 0
+    try:
+        for f in frames:
+            enc.send_picture(f)
+        enc.send_picture(None)
+    finally:
+        (AN.analyze, PE.build_p_frame_encoder_dyn,
+         PE.build_b_frame_encoder_dyn) = saved
+    launches = G.gather_tiles.launches
+    tus = []
+    while (pkt := enc.get_packet()) is not None:
+        tus.append(pkt)
+    for r in recs.values():
+        r["step_s"] = r.pop("step", 0.0)
+        r["lr_s"] = r.pop("lr", 0.0)
+        r["entropy_s"] = r.pop("entropy", 0.0)
+        r["other_s"] = r["total_s"] - r["step_s"] - r["lr_s"] \
+            - r["entropy_s"] - r["analysis_s"]
+    return tus, recs, launches, enc
+
+
+def psnr_luma(frame, recon, bd: int) -> float:
+    import numpy as np
+    err = frame.y.astype(np.float64) - recon.y.astype(np.float64)
+    mse = float((err * err).mean())
+    return 99.0 if mse == 0 else 10 * np.log10(((1 << bd) - 1) ** 2 / mse)
+
+
 def drive(enc, frames, qps=None):
     """Send frames (each after its push_qp override when qps is given),
     draining after every send and after the flush; TUs in decode
@@ -529,10 +674,12 @@ def parity_phase(svt):
     """Small clips on the card and on the CPU: IPPP at 320x192, hier-B
     at 192x128 (levels 2, 6 frames, so the flush codes a truncated
     span), LDB at 320x192, tiled IPPP at 320x192 with look-ahead and
-    push_qp, and at the RD presets hier-B at 192x128 (preset 6, levels
-    3), IPPP and LDB at 320x192 (preset 7); TUs must be identical.  Then
-    the CLI.  Returns the TU byte sizes."""
-    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    push_qp, at the RD presets hier-B at 192x128 (preset 6, levels 3),
+    IPPP and LDB at 320x192 (preset 7), hier-B with AQ 2 at 192x128, and
+    the 4K VOD config at 200x136 (9 frames of its clip); TUs must be
+    identical.  Then the CLI (also at --bit-depth 10).  Returns the TU
+    byte sizes."""
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame, vod_clip
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
     small = dict(width=320, height=192, qp=40, intra_period=-1,
                  recon_output=True)
@@ -561,11 +708,23 @@ def parity_phase(svt):
         ("320x192 LDB preset 7", dict(small, pred_structure=1, enc_mode=7),
          70, 4, 4),
     ]
+    cases += [
+        ("192x128 hier-B, AQ 2 (per-SB delta-q)",
+         dict(width=192, height=128, qp=40, intra_period=-1,
+              pred_structure=2, hierarchical_levels=2, compound_mode=1,
+              enable_adaptive_quantization=2, scene_change_detection=False,
+              recon_output=True), 80, 7, 13),
+        ("200x136 4K-VOD config (10-bit, preset 6, restoration, AQ)",
+         dict(VOD_KW, width=200, height=136), None, 9, 17),
+    ]
     qps = [30, None, 45, 20]
     sizes = {}
     for name, kw, seed, n, n_tus in cases:
-        frames = [synthetic_frame(kw["width"], kw["height"], seed=seed + i)
-                  for i in range(n)]
+        if seed is None:
+            frames = vod_clip(kw["width"], kw["height"], n)
+        else:
+            frames = [synthetic_frame(kw["width"], kw["height"],
+                                      seed=seed + i) for i in range(n)]
         out = {}
         for device in ("cuda", "cpu"):
             out[device] = drive(Encoder(svt.EncoderConfig(**kw),
@@ -592,6 +751,10 @@ def parity_phase(svt):
         ["-w", "192", "-h", "128", "-q", "40", "--synthetic", "5",
          "--intra-period", "-1", "--pred-struct", "2",
          "--hierarchical-levels", "2", "--preset", "7"])]
+    sizes["192x128 CLI IPPP --bit-depth 10 (IVF bytes)"] = [cli_parity(
+        ["-w", "192", "-h", "128", "-q", "40", "--synthetic", "3",
+         "--bit-depth", "10", "--intra-period", "-1", "--pred-struct",
+         "0"])]
     return sizes
 
 
@@ -633,8 +796,8 @@ def main() -> int:
     t = time.time()
     dev = torch.device("cuda")
     sites, timed = kernel_phase(torch, MC, G, dev)
-    phase("kernel designs vs plain (exact) at 720p P, 1080p B, 1080p RD B "
-          "call-site and awkward shapes", t)
+    phase("kernel designs vs plain (exact) at 720p P, 1080p B, 1080p RD B, "
+          "4K 10-bit RD B call-site and awkward shapes", t)
 
     t = time.time()
     cfg_kw = dict(width=W720, height=H720, qp=40, intra_period=-1,
@@ -786,17 +949,74 @@ def main() -> int:
           "three references)", t)
 
     t = time.time()
+    from svt_av1_tpu_torch.io.yuv import vod_clip
+    vframes = vod_clip(W4K, H4K, N_VOD)
+    vtus, vrecs, vod_launches, venc = vod_path(torch, G, svt, VOD_KW,
+                                               vframes)
+    vcoded = [p for p in vtus if p.recon is not None]
+    if ([p.display_idx for p in vcoded] != [0, 8, 4, 2, 1, 3, 6, 5, 7]
+            or len(vtus) != 2 * N_VOD - 1
+            or not all(p.payload for p in vtus)):
+        raise AssertionError("4K VOD TUs out of the mini-GOP's decode order")
+    if any(p.recon.y.dtype.name != "uint16" for p in vcoded):
+        raise AssertionError("4K VOD recon is not 10-bit (uint16)")
+    if not vcoded[0].leaf16_cells or venc._nrefs3_frames != 4:
+        raise AssertionError("4K VOD: no 16x16 keyframe leaf, or not 4 "
+                             "three-reference frames")
+    want_v = {0: 0, **{d: RD_LAUNCHES[n] for d, n in RD_NREFS.items()}}
+    vcounts = {d: r["gathers"] for d, r in vrecs.items()}
+    if vcounts != want_v or vod_launches != sum(want_v.values()):
+        raise AssertionError(f"the 4K VOD path launched the gather kernel "
+                             f"{vcounts} times per frame, not {want_v}")
+    if not any(r.get("lr_units_on") for r in vrecs.values()):
+        raise AssertionError("4K VOD: restoration switched no unit on")
+    if not all(vrecs[d]["analysis_s"] > 0 for d in range(1, N_VOD)):
+        raise AssertionError("4K VOD: AQ analysis did not run on every "
+                             "inter frame")
+    v_psnr = {p.display_idx: psnr_luma(vframes[p.display_idx], p.recon, 10)
+              for p in vcoded}
+    if not all(25.0 < v < 60.0 for v in v_psnr.values()):
+        raise AssertionError(f"4K VOD PSNR-Y out of range: {v_psnr}")
+    vcomp = sum(p.compound_cells for p in vcoded[2:])
+    vbytes = {p.display_idx: len(p.payload) for p in vcoded}
+    print(f"  4K 10-bit VOD: {len(vcoded)} coded + "
+          f"{len(vtus) - len(vcoded)} show-existing TUs, "
+          f"{sum(len(p.payload) for p in vtus)} bytes, keyframe "
+          f"16x16-leaf cells {vcoded[0].leaf16_cells} of "
+          f"{(H4K // 8) * (W4K // 8)}, three-reference frames "
+          f"{venc._nrefs3_frames}, compound cells {vcomp}, gather "
+          f"launches {vod_launches}", flush=True)
+    for d in [p.display_idx for p in vcoded]:
+        r = vrecs[d]
+        refs = "key" if d == 0 else f"{RD_NREFS[d]} ref"
+        print(f"  display {d} ({refs}): {r['total_s'] * 1e3:.1f} ms = "
+              f"step {r['step_s'] * 1e3:.1f} + restoration "
+              f"{r['lr_s'] * 1e3:.1f} + analysis {r['analysis_s'] * 1e3:.1f}"
+              f" + entropy {r['entropy_s'] * 1e3:.1f} + other "
+              f"{r['other_s'] * 1e3:.1f}; {vbytes[d]} bytes, PSNR-Y "
+              f"{v_psnr[d]:.2f} dB, restoration {r.get('lr_types')} "
+              f"({r.get('lr_units_on', 0)} units on), {r['gathers']} "
+              f"gathers, peak {r['peak_gib']:.2f} GiB", flush=True)
+    vb = [vrecs[d]["total_s"] for d in range(1, 8)]
+    print(f"  frame ms: key {vrecs[0]['total_s'] * 1e3:.1f}, base P "
+          f"{vrecs[8]['total_s'] * 1e3:.1f}, B mean "
+          f"{sum(vb) / 7 * 1e3:.1f}; peak device memory "
+          f"{max(r['peak_gib'] for r in vrecs.values()):.2f} GiB", flush=True)
+    phase("main path 4K 10-bit VOD (bench.py:185: 1 key + base P + 7 B, "
+          "preset 6, restoration, AQ)", t)
+
+    t = time.time()
     sizes = parity_phase(svt)
     for name, sz in sizes.items():
         print(f"  {name} card == CPU, bytes {sz}", flush=True)
     phase("card vs CPU: 320x192 IPPP, 192x128 hier-B, 320x192 LDB, tiled "
           "look-ahead push_qp IPPP, preset 6 hier-B, preset 7 IPPP and "
-          "LDB, CLI", t)
+          "LDB, AQ 2 hier-B, 200x136 VOD config, CLI (also 10-bit)", t)
 
     t = time.time()
     timing_phase(sites, timed)
-    phase("gather timings at the 720p P, 1080p B and 1080p RD B call "
-          "sites", t)
+    phase("gather timings at the 720p P, 1080p B, 1080p RD B and 4K 10-bit "
+          "RD B call sites", t)
 
     def tot(frame, get, per=None):
         """Sum of get(site) over one frame's main-path launches (per:
@@ -823,16 +1043,19 @@ def main() -> int:
         "route": "cuda",
         "source": "svt_av1_tpu_torch/csrc/gather_tiles.cu",
         "replaces": "svt_av1_tpu/ops/gather.py:151",
-        "launches": launches + b_launches + ldb_launches + rd_launches,
+        "launches": (launches + b_launches + ldb_launches + rd_launches
+                     + vod_launches),
         "max_abs_err": max(s["max_abs_err"] for s in sites),
         **per_frame("720p P"), "bound_by": "bytes",
         "per_1080p_b_frame": per_frame("1080p B"),
         "per_1080p_ldb_frame": per_frame("1080p B", LDB1080),
-        "per_1080p_rd_b_frame": per_frame("1080p RD B")}]}
+        "per_1080p_rd_b_frame": per_frame("1080p RD B"),
+        "per_4k_10bit_rd_b_frame": per_frame("4K RD B")}]}
     for label, frame, per in (("720p P", "720p P", None),
                               ("1080p B", "1080p B", None),
                               ("1080p LDB", "1080p B", LDB1080),
-                              ("1080p RD B", "1080p RD B", None)):
+                              ("1080p RD B", "1080p RD B", None),
+                              ("4K 10-bit RD B", "4K RD B", None)):
         for d in ["main", *(d for d in G.DESIGNS if d != G.MAIN_DESIGN),
                   "take", "plain"]:
             dv = tot(frame, lambda s: s[d]["device_us"], per)
@@ -864,6 +1087,12 @@ def main() -> int:
                          "leaf16_cells": leaf16,
                          "nrefs3_frames": renc._nrefs3_frames,
                          "compound_cells": rcomp},
+            "vod_4k10": {"frames": {str(d): r for d, r in vrecs.items()},
+                         "tu_bytes": [len(p.payload) for p in vtus],
+                         "psnr_y": {str(d): v for d, v in v_psnr.items()},
+                         "launches": vod_launches,
+                         "leaf16_cells": vcoded[0].leaf16_cells,
+                         "compound_cells": vcomp},
             "parity_tu_bytes": sizes,
             "kernels": kernels["kernels"],
             "total_s": time.time() - t0}, indent=1))

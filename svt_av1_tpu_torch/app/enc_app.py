@@ -23,9 +23,11 @@ preset):
   --stat-report   print per-frame PSNR
   --synthetic N   encode N synthetic frames (no input needed)
 
-Settings the port does not run yet (``--nch > 1``, ``--gop-shards >
-1``, ``--scm``, ``--rc``, 10-bit, presets below 6, ...) exit non-zero
-with the refusal's text.
+``--bit-depth 10`` (raw little-endian 16-bit samples, or
+``--compressed-ten-bit 1``) writes 16-bit recon files, as the reference
+CLI does.  Settings the port does not run yet (``--nch > 1``,
+``--gop-shards > 1``, ``--scm``, ``--rc``, presets below 6, ...) exit
+non-zero with the refusal's text.
 
 Run: python -m svt_av1_tpu_torch.app.enc_app -w 854 -h 480 -q 40 \\
          --synthetic 8 --intra-period -1 --pred-struct 1 -b out.ivf \\

@@ -221,29 +221,27 @@ def check_slice(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` naming every enabled setting that the
     port does not run yet.
 
-    The port covers 8-bit CQP encoding at presets 6-8 (6-7: the full-RD
-    inter merge and the 16x16 keyframe partition search; multi_ref
-    -1/0/1, a third reference on hier-B interior frames): all-intra
-    streams, low-delay-P (IPPP) chains with one reference and global
-    motion, low-delay B (``pred_structure=1``: LAST + GOLDEN) and
+    The port covers CQP encoding at 8 or 10 bits and presets 6-8 (6-7:
+    the full-RD inter merge and the 16x16 keyframe partition search;
+    multi_ref -1/0/1, a third reference on hier-B interior frames):
+    all-intra streams, low-delay-P (IPPP) chains with one reference and
+    global motion, low-delay B (``pred_structure=1``: LAST + GOLDEN) and
     hierarchical-B random access (``pred_structure=2``, with or without
-    compound prediction), with deblocking and CDEF, scene-change
-    detection (the
-    flat structures; hier-B ignores it, as the reference package does),
-    look-ahead q offsets (the flat structures) and tiled inter frames.
-    Everything else is refused by name rather than encoded differently
-    from the reference package.
+    compound prediction), with deblocking, CDEF and loop restoration
+    (Wiener / self-guided, a host stage), adaptive quantization (1: a
+    frame-level q offset; 2: plus per-superblock delta-q on hier-B
+    inter frames), scene-change detection (the flat structures; hier-B
+    ignores it, as the reference package does), look-ahead q offsets
+    (the flat structures) and tiled inter frames.  Everything else is
+    refused by name rather than encoded differently from the reference
+    package.
     """
     inter = not cfg.intra_only
     hier = inter and cfg.pred_structure == PRED_STRUCT_RANDOM_ACCESS
     gates = {
         "enc_mode<=5 (txs, rect, rich intra)": cfg.enc_mode <= 5,
-        "bit_depth=10": cfg.bit_depth == 10,
-        "enable_adaptive_quantization": bool(
-            cfg.enable_adaptive_quantization),
         "rate_control_mode!=0 (only CQP)":
             cfg.rate_control_mode != RC_MODE_CQP,
-        "enable_restoration": bool(cfg.enable_restoration),
         "enable_warped_motion": bool(cfg.enable_warped_motion),
         "screen_content_mode (IBC)": bool(cfg.screen_content_mode),
         "enable_film_grain": bool(cfg.enable_film_grain),

@@ -1027,7 +1027,36 @@ def code_sgr_filter(enc, dec, xqd_ref, ep=None, xqd=None):
     """Per-RU SGRPROJ params: 4-bit ep literal + xqd refsubexp against
     the running reference (ref write_sgrproj_filter,
     EbEntropyCoding.c:4487).  Returns (ep, xqd)."""
-    raise NotImplementedError("loop restoration is not ported")
+    from svt_av1_tpu_torch.ops.restoration import SGR_PARAMS
+    ep = code_literal(enc, dec, 4, ep)
+    r0, r1 = SGR_PARAMS[ep][0], SGR_PARAMS[ep][1]
+    out = list(SGR_XQD_MID)
+    if r0 == 0:
+        out[0] = 0
+        out[1] = code_primitive_refsubexpfin(
+            enc, dec, SGR_PRJ_MAX[1] - SGR_PRJ_MIN[1] + 1, SGR_SUBEXP_K,
+            xqd_ref[1] - SGR_PRJ_MIN[1],
+            None if xqd is None else xqd[1] - SGR_PRJ_MIN[1]) \
+            + SGR_PRJ_MIN[1]
+    elif r1 == 0:
+        out[0] = code_primitive_refsubexpfin(
+            enc, dec, SGR_PRJ_MAX[0] - SGR_PRJ_MIN[0] + 1, SGR_SUBEXP_K,
+            xqd_ref[0] - SGR_PRJ_MIN[0],
+            None if xqd is None else xqd[0] - SGR_PRJ_MIN[0]) \
+            + SGR_PRJ_MIN[0]
+        out[1] = xqd_ref[1]
+    else:
+        out[0] = code_primitive_refsubexpfin(
+            enc, dec, SGR_PRJ_MAX[0] - SGR_PRJ_MIN[0] + 1, SGR_SUBEXP_K,
+            xqd_ref[0] - SGR_PRJ_MIN[0],
+            None if xqd is None else xqd[0] - SGR_PRJ_MIN[0]) \
+            + SGR_PRJ_MIN[0]
+        out[1] = code_primitive_refsubexpfin(
+            enc, dec, SGR_PRJ_MAX[1] - SGR_PRJ_MIN[1] + 1, SGR_SUBEXP_K,
+            xqd_ref[1] - SGR_PRJ_MIN[1],
+            None if xqd is None else xqd[1] - SGR_PRJ_MIN[1]) \
+            + SGR_PRJ_MIN[1]
+    return ep, tuple(out)
 
 
 def compound_mode_ctx(res) -> int:

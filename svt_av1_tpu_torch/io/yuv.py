@@ -194,3 +194,12 @@ def synthetic_clip(width: int, height: int, n: int) -> list:
         f.y[yy: yy + 48, xx: xx + 48] = f.y[yy: yy + 48, xx: xx + 48] // 2 + 64
         frames.append(f)
     return frames
+
+
+def vod_clip(width: int, height: int, n: int) -> list:
+    """bench.py's 4K 10-bit VOD clip (run_vod_4k10) at any size: one
+    seeded 10-bit picture (synthetic_frame seed 5) whose luma is rolled
+    by (2i, 3i) in frame i; chroma stays.  The base is made once."""
+    base = synthetic_frame(width, height, seed=5, bit_depth=10)
+    return [Frame(np.roll(base.y, (2 * i, 3 * i), (0, 1)), base.u.copy(),
+                  base.v.copy()) for i in range(n)]

@@ -39,6 +39,13 @@ def kernel(phase: int, filt: int = 0) -> tuple:
     return tuple(int(v) for v in k)
 
 
+def pixel_dtype(bd: int) -> torch.dtype:
+    """The device container of bd-bit pixels: uint8 at 8 bits, int16 at
+    10 (torch's uint16 has no arithmetic or comparisons; 10-bit values
+    fit int16, and the host converts to and from numpy uint16)."""
+    return torch.uint8 if bd == 8 else torch.int16
+
+
 def pad_for_filter(plane, pad: int):
     """Edge-replicate pad by (pad+3) left/top and (pad+4) right/bottom,
     as int32.

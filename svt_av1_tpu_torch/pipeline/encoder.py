@@ -1,23 +1,30 @@
 """Public encoder API of the port.
 
-Port of svt_av1_tpu/pipeline/encoder.py for the slice it covers: 8-bit
-CQP at presets 6-8 (6-7: the full-RD inter merge, the 16x16 keyframe
-partition search on inter streams, and with multi-reference prediction
-a third reference on hier-B interior frames) — all-intra streams,
+Port of svt_av1_tpu/pipeline/encoder.py for the slice it covers: CQP
+at 8 or 10 bits and presets 6-8 (6-7: the full-RD inter merge, the
+16x16 keyframe partition search on inter streams, and with
+multi-reference prediction a third reference on hier-B interior frames)
+— all-intra streams,
 low-delay-P (IPPP) chains with one reference
 (``EncoderConfig(intra_period=-1, pred_structure=0)``, with global
 motion), low-delay B (``pred_structure=1``: every frame predicts from
 the previous frame and the keyframe) and hierarchical-B random access
 (``pred_structure=2``, any ``hierarchical_levels``, ``compound_mode`` 0
-or 1), with deblocking and CDEF; scene-change
+or 1), with deblocking, CDEF and loop restoration; adaptive
+quantization (a frame q offset from picture analysis, and at level 2
+per-superblock delta-q on hier-B inter frames); scene-change
 keyframes and look-ahead q offsets in the flat structures, per-frame QP
 overrides (``push_qp``), tiled inter frames and checkpoint / restore.
 Anything else raises ``NotImplementedError`` (config.check_slice).
+10-bit pixels live on the device as int16 (MC.pixel_dtype) and on the
+host as numpy uint16, as the reference package's frames and recon are.
 
 Dataflow per frame:
   host pad  ->  device encode (intra wavefront, or the P / B step:
   PyTorch + the CUDA tile gather)  ->  device->host copy of the step
-  outputs  ->  host entropy tile (C++ coder, or pipeline.tile)  ->  OBU
+  outputs  ->  host loop restoration (ops.restoration; the restored
+  planes go back to the device as the reference)  ->  host entropy tile
+  (C++ coder, or pipeline.tile for restored frames)  ->  OBU
   packetization
 
 The encoder is synchronous: IPPP, low-delay-B and all-intra frames come
@@ -48,6 +55,7 @@ from svt_av1_tpu_torch.io.yuv import Frame
 from svt_av1_tpu_torch.ops import cdef as CDEF
 from svt_av1_tpu_torch.ops import deblock as DB
 from svt_av1_tpu_torch.ops import mc as MC
+from svt_av1_tpu_torch.ops import restoration as LRR
 from svt_av1_tpu_torch.pipeline import analysis as AN
 from svt_av1_tpu_torch.pipeline import inter_encoder as PE
 from svt_av1_tpu_torch.pipeline import intra_encoder as IE
@@ -55,6 +63,11 @@ from svt_av1_tpu_torch.pipeline.gop import (CodeStep, layer_qindex,
                                             plan_minigop, plan_pins)
 from svt_av1_tpu_torch.pipeline.lookahead import Lookahead
 from svt_av1_tpu_torch.pipeline.tile import TileWriter
+
+
+# delta-q resolution of per-superblock adaptive quantization (spec
+# delta_q_res: deltas in units of 1 << DQ_RES)
+DQ_RES = 2
 
 
 @dataclasses.dataclass
@@ -115,7 +128,8 @@ class Encoder:
         self.seq = O.SequenceParams(
             config.width, config.height, config.bit_depth, config.sb_size,
             enable_cdef=config.enable_cdef, enable_order_hint=self._hier,
-            film_grain_present=False, enable_restoration=False,
+            film_grain_present=False,
+            enable_restoration=config.enable_restoration,
             enable_warped_motion=False, screen_content=False)
         # frame-level interpolation filter: forced by config, or decided
         # once per stream from open-loop stats of the first inter source
@@ -158,6 +172,15 @@ class Encoder:
         use_qp_file / SendQpOnTheFly).  None keeps the configured q for
         that frame."""
         self._qp_queue.append(qp)
+
+    def _aq_offset(self, frame: Frame, stats=None) -> int:
+        """Frame-level adaptive quantization from picture analysis
+        (stats: a PictureStats already computed for this frame)."""
+        if not self.cfg.enable_adaptive_quantization:
+            return 0
+        return AN.aq_frame_offset(stats if stats is not None
+                                  else AN.analyze(frame.y),
+                                  self.cfg.bit_depth)
 
     def _frame_qindex(self, is_key: bool) -> int:
         """The frame's base qindex: the next push_qp override, else the
@@ -285,11 +308,15 @@ class Encoder:
         """Shown keyframe: decoder-side it refreshes every slot, so the
         slot book restarts with the keyframe in slot 0."""
         qindex = self._frame_qindex(True)
-        dev, planes = self._intra_dispatch(frame, qindex)
+        dev, planes, deb = self._intra_dispatch(frame, qindex)
+        lr = host = None
+        if deb is not None:
+            lr, host, planes = self._lr_from_dev(frame, planes, deb)
         self._store = {disp: {"dev": planes, "slot": 0, "pins": 1}}
         self._free_slots = list(range(1, 8))
         self._anchor = disp
-        pkt = self._make_packet(frame, dev, qindex, self._hint(disp))
+        pkt = self._make_packet(frame, dev, qindex, self._hint(disp), lr,
+                                host)
         pkt.pts = pkt.display_idx = disp
         self._packets.append(pkt)
 
@@ -315,12 +342,19 @@ class Encoder:
             else:
                 pending_pins[d] = n
         self._unpin(lo)                    # release the old anchor pin
+        aq = int(self.cfg.enable_adaptive_quantization)
         for step in steps:
             if isinstance(step, CodeStep):
+                # one analysis per frame, shared by the AQ frame offset
+                # and (AQ 2) the per-SB qindex map
+                f_ = frames[step.disp]
+                stats = (AN.analyze(f_.y, f_.u, f_.v, self.cfg.bit_depth)
+                         if aq else None)
                 q = layer_qindex(self._frame_qindex(False), step.layer)
-                q = max(1, min(255, q))
-                self._dispatch_code(step, frames[step.disp], q,
-                                    pending_pins.pop(step.disp, 0), alt=hi)
+                q = max(1, min(255, q + self._aq_offset(f_, stats)))
+                self._dispatch_code(step, f_, q,
+                                    pending_pins.pop(step.disp, 0), alt=hi,
+                                    stats=stats if aq >= 2 else None)
                 self._unpin(step.fwd)
                 if step.bwd is not None:
                     self._unpin(step.bwd)
@@ -333,14 +367,16 @@ class Encoder:
         self._anchor = hi
 
     def _dispatch_code(self, step, frame: Frame, qindex: int,
-                       pins: int, alt=None) -> None:
+                       pins: int, alt=None, stats=None) -> None:
         """Code one hier-B frame, no-show: the mini-GOP base through the
         one-reference P step (no global motion: it is IPPP-only), an
         interior frame through the multi-reference B step (LAST = the
         forward reference, ALTREF = the backward one).  alt: display
         index of the span's base; with multi-reference prediction an
         interior frame whose references are not it adds it as a third
-        single-prediction reference (LAST, BWDREF, ALTREF)."""
+        single-prediction reference (LAST, BWDREF, ALTREF).  stats
+        (adaptive quantization 2): the frame's PictureStats, from which
+        the per-superblock qindex map is made (coded as delta-q)."""
         cfg = self.cfg
         _, _, ph64, pw64 = self._geometry
         sy, su, sv = self._upload_src(frame)
@@ -349,6 +385,18 @@ class Encoder:
         lvls = self._lf_levels(qindex, False)
         filt = self._pick_interp(frame, qindex)
         dyn = (qindex, lvls[0], lvls[2], lvls[3])
+        # per-superblock delta-q (spec 5.9.17): residual quantization goes
+        # per SB on the device, the entropy stage codes the deltas
+        qmap = None
+        aq_on = int(cfg.enable_adaptive_quantization) >= 2
+        if aq_on:
+            m = AN.aq_sb_qmap(stats if stats is not None
+                              else AN.analyze(frame.y), qindex, res=DQ_RES,
+                              bd=cfg.bit_depth)
+            qmap = np.full((ph64 // 64, pw64 // 64), qindex, np.int32)
+            qmap[: m.shape[0], : m.shape[1]] = m[: ph64 // 64, : pw64 // 64]
+            dyn = dyn + (self._to_dev(qmap),)
+        lr = cfg.enable_restoration
         compound = False
         third = None
         if step.bwd is None:
@@ -356,7 +404,7 @@ class Encoder:
             fn = PE.build_p_frame_encoder_dyn(
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
                 cdef=cfg.enable_cdef, bd=cfg.bit_depth, rdo=self._rdo,
-                filt=filt)
+                filt=filt, lr=lr, aq=aq_on)
             out = fn(sy, su, sv, *fwd["dev"], *dyn)
         else:
             compound = cfg.compound_mode > 0
@@ -370,12 +418,12 @@ class Encoder:
             fn = PE.build_b_frame_encoder_dyn(
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
                 cdef=cfg.enable_cdef, compound=compound, bd=cfg.bit_depth,
-                filt=filt, rdo=self._rdo, nrefs=nrefs)
+                filt=filt, rdo=self._rdo, nrefs=nrefs, lr=lr, aq=aq_on)
             extra = third["dev"] if third is not None else ()
             out = fn(sy, su, sv, *fwd["dev"], *bwd["dev"], *extra, *dyn)
         slot = self._free_slots.pop(0)
-        self._store[step.disp] = {"dev": self._recon_as_ref(out),
-                                  "slot": slot, "pins": pins}
+        out, planes, lr_meta = self._inter_refs(frame, out)
+        self._store[step.disp] = {"dev": planes, "slot": slot, "pins": pins}
         fs, bs = fwd["slot"], bwd["slot"]
         fh = self._hint(step.fwd)
         bh = fh if step.bwd is None else self._hint(step.bwd)
@@ -392,7 +440,8 @@ class Encoder:
                 "ref_types": ref_types,
                 "order_hint": self._hint(step.disp),
                 "refresh": 1 << slot,
-                "ref_idx": ref_idx, "ref_hints": ref_hints}
+                "ref_idx": ref_idx, "ref_hints": ref_hints, **lr_meta,
+                **({"qmap": qmap, "dq_res": DQ_RES} if aq_on else {})}
         arrs = [a.cpu().numpy() for a in out]
         pkt = self._make_inter_packet(frame, arrs, qindex, None, meta)
         pkt.show = False
@@ -412,15 +461,28 @@ class Encoder:
         ph, pw = self.seq.mi_rows * 4, self.seq.mi_cols * 4
         return ph, pw, -(-ph // 64) * 64, -(-pw // 64) * 64
 
+    @property
+    def _px(self):
+        """The host pixel dtype (numpy uint8 / uint16)."""
+        return np.uint8 if self.cfg.bit_depth == 8 else np.uint16
+
     def _to_dev(self, a: np.ndarray):
+        """A host array on the device; uint16 pixels become int16."""
+        if a.dtype == np.uint16:
+            a = a.astype(np.int16)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _pixels_to_dev(self, plane: np.ndarray, h: int, w: int):
+        """A source plane in the stream's pixel dtype, edge-padded to
+        h x w, on the device."""
+        return self._to_dev(IE.pad_plane(plane.astype(self._px), h, w))
 
     def _upload_src(self, frame: Frame):
         """The frame's planes edge-padded to the 64-padded geometry."""
         _, _, ph64, pw64 = self._geometry
-        return (self._to_dev(IE.pad_plane(frame.y, ph64, pw64)),
-                self._to_dev(IE.pad_plane(frame.u, ph64 // 2, pw64 // 2)),
-                self._to_dev(IE.pad_plane(frame.v, ph64 // 2, pw64 // 2)))
+        return (self._pixels_to_dev(frame.y, ph64, pw64),
+                self._pixels_to_dev(frame.u, ph64 // 2, pw64 // 2),
+                self._pixels_to_dev(frame.v, ph64 // 2, pw64 // 2))
 
     def _as_ref_planes(self, y, u, v):
         """Edge-pad recon planes to the 64-padded inter geometry (the
@@ -436,6 +498,16 @@ class Encoder:
         return self._as_ref_planes(out[5][:ph, :pw],
                                    out[6][: ph // 2, : pw // 2],
                                    out[7][: ph // 2, : pw // 2])
+
+    def _inter_refs(self, frame: Frame, out):
+        """A P / B step's outputs -> (outputs without the deblocked
+        planes, reference planes, packet meta).  With restoration the
+        step's last three outputs are the deblocked planes; the restored
+        recon is the reference and the packet's recon."""
+        if not self.cfg.enable_restoration:
+            return out, self._recon_as_ref(out), {}
+        lr, host, planes = self._lr_from_dev(frame, out[5:8], out[-3:])
+        return out[:-3], planes, {"lr": lr, "lr_planes": host}
 
     def _pick_interp(self, frame: Frame, qindex: int) -> int:
         """Resolve the stream's interpolation filter (spec
@@ -456,13 +528,17 @@ class Encoder:
         self._send_idx += 1
         key = self._is_key(d) or self._scene_cut(frame)
         qindex = self._frame_qindex(key)
+        qindex = max(1, min(255, qindex + self._aq_offset(frame)))
         if not key:
             qindex = max(1, min(255, qindex + q_off))
         if key or self._ldb_last is None:
-            dev, planes = self._intra_dispatch(frame, qindex)
+            dev, planes, deb = self._intra_dispatch(frame, qindex)
+            lr = host = None
+            if deb is not None:
+                lr, host, planes = self._lr_from_dev(frame, planes, deb)
             self._ldb_golden = (planes, 0)      # (device planes, slot)
             self._ldb_last = (planes, 0)
-            pkt = self._make_packet(frame, dev, qindex)
+            pkt = self._make_packet(frame, dev, qindex, 0, lr, host)
             pkt.pts = pkt.display_idx = d
             self._packets.append(pkt)
             return
@@ -473,18 +549,20 @@ class Encoder:
         fn = PE.build_b_frame_encoder_dyn(
             ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
             cdef=cfg.enable_cdef, compound=False, bd=cfg.bit_depth,
-            filt=self._pick_interp(frame, qindex), rdo=self._rdo)
+            filt=self._pick_interp(frame, qindex), rdo=self._rdo,
+            lr=cfg.enable_restoration)
         out = fn(sy, su, sv, *self._ldb_last[0], *self._ldb_golden[0],
                  qindex, lvls[0], lvls[2], lvls[3])
         ls, gs = self._ldb_last[1], self._ldb_golden[1]
         new_slot = 1 if ls != 1 else 2
-        self._ldb_last = (self._recon_as_ref(out), new_slot)
+        out, planes, lr_meta = self._inter_refs(frame, out)
+        self._ldb_last = (planes, new_slot)
         meta = {"nrefs": 2, "compound": False, "show": True,
                 "ref_types": (1, 4),              # LAST, GOLDEN
                 "order_hint": 0,
                 "refresh": 1 << new_slot,
                 "ref_idx": (ls, ls, ls, gs, ls, ls, ls),
-                "ref_hints": (0,) * 7}
+                "ref_hints": (0,) * 7, **lr_meta}
         arrs = [a.cpu().numpy() for a in out]
         pkt = self._make_inter_packet(frame, arrs, qindex, None, meta)
         pkt.pts = pkt.display_idx = d
@@ -497,15 +575,22 @@ class Encoder:
         idx = self._send_idx
         key = self._is_key(idx) or self._scene_cut(frame)
         qindex = self._frame_qindex(key)
+        if not self.cfg.intra_only:
+            # the reference's all-intra (batched) path has no AQ offset
+            qindex = max(1, min(255, qindex + self._aq_offset(frame)))
         if not key:
             qindex = max(1, min(255, qindex + q_off))
         self._send_idx += 1
         _, _, ph64, pw64 = self._geometry
         if key or self._ref_dev is None:
-            dev, self._ref_dev = self._intra_dispatch(frame, qindex)
+            dev, self._ref_dev, deb = self._intra_dispatch(frame, qindex)
+            lr = host = None
+            if deb is not None:
+                lr, host, self._ref_dev = self._lr_from_dev(
+                    frame, self._ref_dev, deb)
             if self._gm_enab:
                 self._gm_prev_src = frame.y
-            pkt = self._make_packet(frame, dev, qindex)
+            pkt = self._make_packet(frame, dev, qindex, 0, lr, host)
         else:
             sy, su, sv = self._upload_src(frame)
             gmv = None
@@ -519,23 +604,33 @@ class Encoder:
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
                 cdef=self.cfg.enable_cdef, bd=self.cfg.bit_depth,
                 rdo=self._rdo, filt=self._pick_interp(frame, qindex),
-                gm=self._gm_enab)
+                gm=self._gm_enab, lr=self.cfg.enable_restoration)
             out = fn(sy, su, sv, *self._ref_dev, qindex, lvls[0], lvls[2],
                      lvls[3], gmv or (0, 0))
-            self._ref_dev = self._recon_as_ref(out)
+            out, self._ref_dev, lr_meta = self._inter_refs(frame, out)
+            meta = None
+            if lr_meta:
+                meta = {"show": True, "order_hint": 0, "refresh": 0x01,
+                        "ref_idx": (0,) * 7, "ref_hints": (0,) * 7,
+                        **lr_meta}
             arrs = [a.cpu().numpy() for a in out]
-            pkt = self._make_inter_packet(frame, arrs, qindex, gmv)
+            pkt = self._make_inter_packet(frame, arrs, qindex, gmv, meta)
         pkt.pts = idx
+        if self.cfg.enable_restoration and not self.cfg.intra_only:
+            # the reference's restored IPPP frames carry their display
+            # index (its restoration meta sets it)
+            pkt.display_idx = idx
         self._packets.append(pkt)
 
     def _intra_dispatch(self, frame: Frame, qindex: int):
         """Keyframe: wavefront encode + in-loop filters on the device (the
         RD presets' wavefront picks 16x16 or 8x8 leaves per 16x16 unit).
-        Returns (host dict for the packet writer, reference planes)."""
+        Returns (host dict for the packet writer, reference planes, the
+        deblocked pre-CDEF planes when restoration is on, else None)."""
         ph, pw, _, _ = self._geometry
-        src = (self._to_dev(IE.pad_plane(frame.y, ph, pw)),
-               self._to_dev(IE.pad_plane(frame.u, ph // 2, pw // 2)),
-               self._to_dev(IE.pad_plane(frame.v, ph // 2, pw // 2)))
+        src = (self._pixels_to_dev(frame.y, ph, pw),
+               self._pixels_to_dev(frame.u, ph // 2, pw // 2),
+               self._pixels_to_dev(frame.v, ph // 2, pw // 2))
         blocks = (IE.block_planes(src[0], 8), IE.block_planes(src[1], 4),
                   IE.block_planes(src[2], 4))
         # the RD presets' 16x16 partition search runs on the keyframes of
@@ -545,8 +640,9 @@ class Encoder:
         step = IE.frame_step16 if part16 else IE.frame_step
         out = step(*blocks, qindex, self.cfg.bit_depth)
         planes = tuple(IE.unblock_planes(out[i]) for i in (4, 5, 6))
-        cdef_idx = None
-        if self.cfg.enable_deblocking or self.cfg.enable_cdef:
+        cdef_idx = deb = None
+        if (self.cfg.enable_deblocking or self.cfg.enable_cdef
+                or self.cfg.enable_restoration):
             # per-cell coded-skip map (CDEF skips skip blocks, spec 7.15);
             # a 16x16 leaf's four cells share its skip
             zero = lambda a: (a == 0).all(-1).all(-1)
@@ -558,8 +654,8 @@ class Encoder:
                 sk16 = PE._up(zero(out[11]) & zero(out[12]) & zero(out[13]),
                               2)[:nbh, :nbw]
                 sk = torch.where(sizes8 == 16, sk16, sk)
-            planes, cdef_idx = self._intra_postproc(planes, src, sk, qindex,
-                                                    sizes8)
+            planes, cdef_idx, deb = self._intra_postproc(planes, src, sk,
+                                                         qindex, sizes8)
         names = ["modes", "levels_y", "levels_u", "levels_v"]
         if part16:
             names += ["angles", "uv_modes", "cfl", "sizes", "levels16_y",
@@ -571,12 +667,14 @@ class Encoder:
         if self._need_recon():
             dev["recon_y"], dev["recon_u"], dev["recon_v"] = (
                 p.cpu().numpy() for p in planes)
-        return dev, self._as_ref_planes(*planes)
+        return dev, self._as_ref_planes(*planes), deb
 
     def _intra_postproc(self, planes, srcs, sk, qindex: int, sizes8=None):
         """Keyframe in-loop filters: deblock on the tx grid (8x8 / 4x4
         chroma, or the per-cell 8/16 leaf sizes of the RD presets), then
-        the CDEF search + apply."""
+        the CDEF search + apply.  Returns (planes, CDEF index map, the
+        deblocked planes when restoration is on, else None)."""
+        bd = self.cfg.bit_depth
         ph, pw, _, _ = self._geometry
         ly, _, lu, lv = self._lf_levels(qindex, True)
         i32 = lambda a: a.to(torch.int32)
@@ -588,29 +686,103 @@ class Encoder:
         else:
             sz_y = PE._up(i32(sizes8), 8)
             sz_c = PE._up(i32(sizes8) // 2, 4)
-        y = DB.deblock_plane(i32(planes[0]), sz_y, ly, ly, True)
-        u = DB.deblock_plane(i32(planes[1]), sz_c, lu, lu, False)
-        v = DB.deblock_plane(i32(planes[2]), sz_c, lv, lv, False)
+        y = DB.deblock_plane(i32(planes[0]), sz_y, ly, ly, True, bd=bd)
+        u = DB.deblock_plane(i32(planes[1]), sz_c, lu, lu, False, bd=bd)
+        v = DB.deblock_plane(i32(planes[2]), sz_c, lv, lv, False, bd=bd)
+        px = lambda a: a.to(MC.pixel_dtype(bd))
+        deb = ((px(y), px(u), px(v)) if self.cfg.enable_restoration
+               else None)
         idx_sb = torch.zeros((-(-ph // 64), -(-pw // 64)), dtype=torch.uint8,
                              device=self.device)
         if self.cfg.enable_cdef:
             (y, u, v), idx_sb = CDEF.cdef_search_and_apply(
                 (y, u, v), tuple(i32(s) for s in srcs), sk,
-                CDEF.pick_damping(qindex))
+                CDEF.pick_damping(qindex), coeff_shift=bd - 8)
             idx_sb = idx_sb.to(torch.uint8)
-        px = lambda a: a.to(torch.uint8)
-        return (px(y), px(u), px(v)), idx_sb
+        return (px(y), px(u), px(v)), idx_sb, deb
+
+    def _lr_from_dev(self, frame: Frame, rec, deb):
+        """Loop restoration of one frame on the host: fetch the recon and
+        the deblocked planes (device, cropped to the mode-info extent),
+        run the per-plane search and apply (_lr_process).  Returns (the
+        per-plane lr list or None, the restored host planes (int32), the
+        restored planes as device reference planes).  Restoration's
+        output is the reference buffer's content, so the next frame
+        cannot start before it lands."""
+        ph, pw, _, _ = self._geometry
+        host = lambda a, sh: np.asarray(
+            a[: ph >> sh, : pw >> sh].cpu().numpy(), np.int32)
+        pl = [host(rec[0], 0), host(rec[1], 1), host(rec[2], 1)]
+        dpl = [host(deb[0], 0), host(deb[1], 1), host(deb[2], 1)]
+        lr = self._lr_process(frame, pl, dpl)
+        refs = self._as_ref_planes(*(self._to_dev(p.astype(self._px))
+                                     for p in pl))
+        return lr, pl, refs
+
+    def _lr_process(self, frame: Frame, planes, deb):
+        """Per-plane loop restoration: Wiener AND self-guided searches
+        against the source; each plane signals whichever type wins more
+        total SSE, applied in place into ``planes``.  ``deb`` holds the
+        deblocked (pre-CDEF) planes the stripe context rows come from
+        (spec save_deblock_boundary_lines).  Returns the per-plane lr
+        list [{type, unit, use, ...} | None] * 3, or None when no plane
+        restores (ref search_wiener + search_sgrproj,
+        EbRestorationPick.c:705)."""
+        bd = self.cfg.bit_depth
+        out = []
+        for p in range(3):
+            ss = 0 if p == 0 else 1
+            h = self.seq.height if p == 0 else (self.seq.height + 1) // 2
+            w = self.seq.width if p == 0 else (self.seq.width + 1) // 2
+            unit = 64 >> ss          # luma 64, chroma 32 (lr_uv_shift=1)
+            src = (frame.y, frame.u, frame.v)[p][:h, :w].astype(np.int32)
+            crop = np.ascontiguousarray(planes[p][:h, :w].astype(np.int32))
+            dsub = np.ascontiguousarray(deb[p][:h, :w].astype(np.int32))
+            use_w, taps = LRR.search_wiener_plane(src, crop, dsub, unit, ss,
+                                                  bd=bd)
+            # the preset-gated self-guided set (ref sg_filter_mode: the
+            # fast presets search a reduced ep set)
+            eps = ((4, 11) if self.cfg.enc_mode >= 6
+                   else (0, 4, 7, 9, 11, 13, 14, 15))
+            use_s, ep, xqd, sse_s = LRR.search_sgr_plane(
+                src, crop, dsub, unit, ss, eps=eps, bd=bd)
+            # plane-level type pick by realized SSE (off-RU keeps self)
+            got_w = crop
+            if use_w.any():
+                got_w = LRR.apply_wiener_plane(crop, dsub, unit, ss, use_w,
+                                               taps, bd)
+            sse_w = ((got_w.astype(np.int64) - src) ** 2).sum()
+            if use_s.any() and sse_s.sum() < sse_w:
+                planes[p][:h, :w] = LRR.apply_sgr_plane(
+                    crop, dsub, unit, ss, use_s, ep, xqd, bd)
+                out.append({"unit": unit, "type": 3, "use": use_s,
+                            "ep": ep, "xqd": xqd})
+            elif use_w.any():
+                planes[p][:h, :w] = got_w
+                out.append({"unit": unit, "type": 2, "use": use_w,
+                            "taps": taps})
+            else:
+                out.append(None)
+        return out if any(p is not None for p in out) else None
 
     def _make_inter_packet(self, frame: Frame, arrs, qindex: int, gmv,
                            meta=None) -> Packet:
         """Entropy-code one P / B step's host outputs, one tile at a time
-        on the configured tile grid.  meta (hier-B, low-delay B): the
-        step's reference count and compound flag, whether it is shown,
-        its ref types, slots and order hints, and its own order hint and
-        refresh slot."""
+        on the configured tile grid.  meta (hier-B, low-delay B, restored
+        IPPP frames): the step's reference count and compound flag,
+        whether it is shown, its ref types, slots and order hints, its
+        own order hint and refresh slot, and with restoration the
+        per-plane lr list and the restored planes ("lr", "lr_planes"),
+        with adaptive quantization 2 the per-SB qindex map ("qmap",
+        "dq_res").  Restored frames take the Python tile writer (the
+        C++ coder has no restoration syntax), as in the reference."""
         cfg = self.cfg
-        nr = meta["nrefs"] if meta else 1
-        compound = bool(meta and meta["compound"])
+        meta_ = meta or {}
+        nr = meta_.get("nrefs", 1)
+        compound = bool(meta_.get("compound"))
+        lr = meta_.get("lr")
+        qmap = meta_.get("qmap")
+        dq_res = meta_.get("dq_res", 0)
         lay = PE.inter_layout(nr, compound, False, lv8=False, lr=False)
         sizes = arrs[lay["sizes"]]
         mv = arrs[lay["mv"]].astype(np.int32)
@@ -638,7 +810,7 @@ class Encoder:
                                        meta["ref_hints"])
                      if meta else None)
         native = None
-        if cfg.entropy_backend in ("auto", "cpp"):
+        if lr is None and cfg.entropy_backend in ("auto", "cpp"):
             from svt_av1_tpu_torch.entropy import backend
             if backend.available():
                 native = backend
@@ -653,20 +825,22 @@ class Encoder:
                                             (sizes, mv, refs8, mvs2))
             t_pk = tuple(cells(a) for a in packs)
             t_ci = _tile_slice(cdef_idx, r0, c0, hm, wm, 16)
+            t_qm = _tile_slice(qmap, r0, c0, hm, wm, 16)
             fc = FrameContext(qindex)
             if native is not None:
                 return native.encode_tile_inter_cpp(
                     fc, hm, wm, qindex, t_sizes, t_mv, packs=t_pk,
                     cdef_idx=t_ci, refs=t_refs, sign_bias=sign_bias,
                     mvs2=t_mv2, comp_pair=comp_pair or (1, 7), txty=None,
-                    gm=gm, qmap=None, delta_q_res=0)
+                    gm=gm, qmap=t_qm, delta_q_res=dq_res)
             lv = {bs: tuple(_unpack_levels(t_pk[p], bs) for p in range(3))
                   for bs in (8, 16, 32, 64)}
-            tw = TileWriter(fc, hm, wm, qindex, lr_off=(r0, c0),
+            tw = TileWriter(fc, hm, wm, qindex, lr=lr, lr_off=(r0, c0),
                             frame_mi=(self.seq.mi_rows, self.seq.mi_cols))
             return tw.encode_inter(t_sizes, t_mv, lv, cdef_idx=t_ci,
                                    refs=t_refs, sign_bias=sign_bias,
-                                   comp_pair=comp_pair, mvs2=t_mv2, gm=gm)
+                                   comp_pair=comp_pair, mvs2=t_mv2, gm=gm,
+                                   qmap=t_qm, delta_q_res=dq_res)
 
         trows, tcols = O.tile_starts(self.seq, cfg.tile_columns_log2,
                                      cfg.tile_rows_log2)
@@ -689,29 +863,41 @@ class Encoder:
                 gm_trans[rt - 1] = tuple(int(x) for x in mv8g)
             hdr["gm_types"] = tuple(gm_types)
             hdr["gm_trans"] = tuple(gm_trans)
-        fp = O.FrameParams(base_q_idx=qindex, delta_q_res=0,
+        fp = O.FrameParams(base_q_idx=qindex,
+                           delta_q_res=(dq_res if qmap is not None else 0),
                            tile_cols_log2=cfg.tile_columns_log2,
                            tile_rows_log2=cfg.tile_rows_log2,
                            frame_type=O.INTER_FRAME,
                            interp_filter=(self._interp_filt or 0),
                            filter_levels=self._lf_levels(qindex, False),
-                           film_grain=None, lr_types=(0, 0, 0),
+                           film_grain=None, lr_types=_lr_types(lr),
                            lr_uv_shift=1, switchable_motion_mode=False,
                            allow_warped_motion=False,
                            **hdr, **self._cdef_params(qindex))
         payload = (O.temporal_delimiter()
                    + O.write_frame_obu(self.seq, fp, tile))
         recon = None
-        if self._need_recon():
+        if meta_.get("lr_planes") is not None:
+            recon = self._crop_recon(*meta_["lr_planes"])
+        elif self._need_recon():
             recon = self._crop_recon(arrs[lay["rec_y"]], arrs[lay["rec_u"]],
                                      arrs[lay["rec_v"]])
+        # (the reference measures inter-frame PSNR on the 8-bit peak at
+        # every bit depth; kept for equal stat files)
         psnr = _psnr(frame, recon) if (cfg.stat_report and recon) else None
         return Packet(payload, -1, False, recon, psnr, qindex=qindex,
                       compound_cells=n_comp)
 
     def _make_packet(self, frame: Frame, dev: dict, qindex: int,
-                     order_hint: int = 0) -> Packet:
+                     order_hint: int = 0, lr=None, lr_planes=None) -> Packet:
+        """Entropy-code a keyframe (one tile).  lr / lr_planes: the
+        restoration's per-plane list and the restored planes, which are
+        the packet's recon (the Python tile writer codes the restoration
+        syntax)."""
         cfg = self.cfg
+        if lr_planes is not None:
+            dev = dict(dev, recon_y=lr_planes[0], recon_u=lr_planes[1],
+                       recon_v=lr_planes[2])
         fc = FrameContext(qindex)
         cdef_idx = dev.get("cdef_idx") if cfg.enable_cdef else None
         # the RD presets' 16x16 wavefront: per-cell leaf sizes, the 16x16
@@ -723,7 +909,7 @@ class Encoder:
             rd_maps["levels16"] = (dev["levels16_y"], dev["levels16_u"],
                                    dev["levels16_v"])
         tile = None
-        if cfg.entropy_backend in ("auto", "cpp"):
+        if lr is None and cfg.entropy_backend in ("auto", "cpp"):
             from svt_av1_tpu_torch.entropy import backend as native
             if native.available():
                 tile = native.encode_tile_cpp(
@@ -734,14 +920,15 @@ class Encoder:
             elif cfg.entropy_backend == "cpp":
                 raise RuntimeError("C++ entropy backend unavailable")
         if tile is None:
-            tw = TileWriter(fc, self.seq.mi_rows, self.seq.mi_cols, qindex)
+            tw = TileWriter(fc, self.seq.mi_rows, self.seq.mi_cols, qindex,
+                            lr=lr)
             tile = tw.encode(dev["modes"], dev["levels_y"], dev["levels_u"],
                              dev["levels_v"], cdef_idx=cdef_idx, **rd_maps)
         fp = O.FrameParams(base_q_idx=qindex,
                            tile_cols_log2=0, tile_rows_log2=0,
                            filter_levels=self._lf_levels(qindex, True),
                            order_hint=order_hint, film_grain=None,
-                           lr_types=(0, 0, 0), lr_uv_shift=1,
+                           lr_types=_lr_types(lr), lr_uv_shift=1,
                            allow_screen_content=False, allow_intrabc=False,
                            **self._cdef_params(qindex))
         payload = (O.temporal_delimiter()
@@ -759,13 +946,17 @@ class Encoder:
                       leaf16_cells=leaf16)
 
     def _crop_recon(self, y, u, v) -> Frame:
+        """Host recon planes (any integer dtype) cropped to the frame, in
+        the stream's pixel dtype."""
         h, w = self.seq.height, self.seq.width
         ch, cw = (h + 1) // 2, (w + 1) // 2
-        return Frame(y[:h, :w].astype(np.uint8), u[:ch, :cw].astype(np.uint8),
-                     v[:ch, :cw].astype(np.uint8))
+        px = self._px
+        return Frame(y[:h, :w].astype(px), u[:ch, :cw].astype(px),
+                     v[:ch, :cw].astype(px))
 
     def _need_recon(self) -> bool:
-        return self.cfg.recon_output or self.cfg.stat_report
+        return (self.cfg.recon_output or self.cfg.stat_report
+                or self.cfg.enable_restoration)
 
     def _cdef_params(self, qindex: int) -> dict:
         if not self.cfg.enable_cdef:
@@ -831,6 +1022,13 @@ def _unpack_levels(packed: np.ndarray, bs: int) -> np.ndarray:
     return (packed.astype(np.int32)
             .reshape(gh, k, gw, k, t, t).transpose(0, 2, 1, 4, 3, 5)
             .reshape(gh, gw, k * t, k * t))
+
+
+def _lr_types(lr) -> tuple:
+    """FrameParams.lr_types from a per-plane lr list (None: NONE)."""
+    if lr is None:
+        return (0, 0, 0)
+    return tuple(0 if pl is None else pl["type"] for pl in lr)
 
 
 def _qp_to_qindex(qp: int) -> int:

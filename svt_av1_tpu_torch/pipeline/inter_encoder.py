@@ -2,7 +2,7 @@
 with variable partitions.
 
 Port of svt_av1_tpu/pipeline/inter_encoder.py at presets 6-8 (txs=False,
-rect=False, lr=False, aq=False): ``p_frame_step`` with one reference
+rect=False), at 8 or 10 bits: ``p_frame_step`` with one reference
 (low-delay P and the hierarchical-B base layer, with or without the
 global motion candidate), two (hierarchical-B interior frames: the
 forward and the backward reference, optionally with the
@@ -18,7 +18,11 @@ bulk-parallel program over every block.  Preset 8 (rdo=False):
   -> one quarter-pel refinement per 8x8 cell and reference against the
      true reference, then the per-cell reference / compound choice
   -> MC at cell granularity -> residual coding at every leaf size
-  -> per-cell selection -> deblocking + CDEF.
+  -> per-cell selection -> deblocking + CDEF.  With lr=True the step also
+returns the deblocked (pre-CDEF) planes, which the host's loop
+restoration reads its stripe context rows from; with aq=True residual
+quantization goes per superblock from a qindex map (adaptive
+quantization 2; lambda, loop filters and CDEF stay at the frame q).
 
 The RD presets 6-7 (rdo=True): a +-4 lattice, a dense quarter-pel
 refinement per size, 64x64 candidates from the 32x32 winners, the
@@ -62,9 +66,9 @@ _LEAF = RDO.inter_leaf_bits()          # mode / ref_single / comp_extra
 def inter_layout(nrefs: int, compound: bool, txs: bool, lv8: bool,
                  lr: bool, rect: bool = False) -> dict:
     """name -> output-tuple index for a p_frame_step build (the port
-    builds txs/lv8/lr/rect False: the first nine names, then ``ref8``
-    for nrefs=2 and ``mv2`` for compound; the reference package's
-    names and indices for the same flags)."""
+    builds txs/lv8/rect False: the first nine names, then ``ref8`` for
+    nrefs >= 2, ``mv2`` for compound and the deblocked planes for lr;
+    the reference package's names and indices for the same flags)."""
     names = ["sizes", "mv", "ly", "lu", "lv", "rec_y", "rec_u", "rec_v",
              "cdef"]
     if nrefs >= 2:
@@ -97,11 +101,15 @@ def _up(a, k: int):
     return a if k == 1 else a.repeat_interleave(k, 0).repeat_interleave(k, 1)
 
 
-def _encode_plane(src_blocks, pred_blocks, qindex: int, tx_size: int,
+def _encode_plane(src_blocks, pred_blocks, qindex, tx_size: int,
                   bd: int = 8, tx_type: int = T.DCT_DCT):
     """[nbh, nbw, bh, bw] source + prediction -> (levels, recon) with
-    the f32 forward transform and the exact inverse."""
+    the f32 forward transform and the exact inverse.  qindex: a Python
+    int, or an [nbh, nbw] tensor of per-block qindex values (per-SB
+    adaptive quantization)."""
     nbh, nbw, bh, bw = src_blocks.shape
+    if isinstance(qindex, torch.Tensor):
+        qindex = qindex.reshape(-1)
     resid = (src_blocks - pred_blocks).reshape(-1, bh, bw)
     coeff = T.fwd_txfm2d_batch(resid, tx_size, tx_type, bd)
     levels = Q.quantize_batch(coeff, qindex, tx_size, bd)
@@ -357,15 +365,16 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     frame's mode-info grid.
     step(sy [ph,pw], su, sv [ph/2,pw/2], ref0_y, ref0_u, ref0_v
          [, ref1_y, ref1_u, ref1_v [, ref2_y, ref2_u, ref2_v]], qindex,
-         lf_y, lf_u, lf_v[, gmv])
+         lf_y, lf_u, lf_v[, gmv][, qmap])
     -> (sizes [nb8h,nb8w] u8 (8..64 leaf size covering each 8x8 cell),
         mv8 [nb8h,nb8w,2] i16 (selected cell MV in 1/8 pel),
         ly [nb8h,nb8w,8,8], lu, lv [nb8h,nb8w,4,4] i16 per-cell levels,
-        recon_y [ph,pw] u8, recon_u, recon_v, cdef idx [sb rows, sb cols]
-        u8[, ref8 [nb8h,nb8w] u8 (index of the cell's reference, nrefs =
-        compound) when nrefs >= 2][, mv2 [nb8h,nb8w,2] i16 (the compound
-        cells' ref1 MV) when compound]) — inter_layout(nrefs, compound,
-        False, False, False) order.
+        recon_y [ph,pw], recon_u, recon_v (MC.pixel_dtype(bd)), cdef idx
+        [sb rows, sb cols] u8[, ref8 [nb8h,nb8w] u8 (index of the cell's
+        reference, nrefs = compound) when nrefs >= 2][, mv2 [nb8h,nb8w,2]
+        i16 (the compound cells' ref1 MV) when compound][, deb_y, deb_u,
+        deb_v: the deblocked, pre-CDEF planes at the mode-info extent,
+        when lr]) — inter_layout(nrefs, compound, False, False, lr) order.
     rdo=False is preset 8 (fast SAD merge, then one quarter-pel
     refinement per 8x8 cell); rdo=True the RD presets 6-7 (dense
     quarter-pel refinement per size, 64x64 candidates, residual coding
@@ -373,12 +382,14 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     reference (ALTREF) joins the per-size argmin; compound pairs
     (ref0, ref1).  qindex and the loop-filter levels are Python ints;
     gmv is the frame's (row, col) global translation in 1/8 pel (gm=True
-    with one reference only, as in the reference package).
+    with one reference only, as in the reference package).  Sources and
+    references are pixel tensors of any integer dtype (uint8 at 8 bits,
+    int16 at 10).  qmap (aq=True): [ph/64, pw/64] absolute qindex per
+    superblock, used by residual quantization only.
     """
     unported = {"nrefs>3": nrefs > 3,
                 "compound with nrefs=1": compound and nrefs == 1,
-                "bit_depth=10": bd != 8, "txs": txs, "rect": rect,
-                "lr": lr, "aq": aq, "filters=False": not filters}
+                "txs": txs, "rect": rect, "filters=False": not filters}
     off = [k for k, v in unported.items() if v]
     if off:
         raise NotImplementedError(f"p_frame_step: {', '.join(off)} "
@@ -406,13 +417,22 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     def step(sy, su, sv, *rest):
         refs = rest[: 3 * nrefs]
         qindex, lf_y, lf_u, lf_v = rest[3 * nrefs: 3 * nrefs + 4]
-        gmv = rest[3 * nrefs + 4] if len(rest) > 3 * nrefs + 4 else None
+        extra = rest[3 * nrefs + 4:]
+        gmv = extra[0] if (gm and extra) else None
+        qmap = extra[-1] if aq else None
         dev = sy.device
         q = int(qindex)
         ac = int(ac_table[q])
         lam = max(8, ac // 4)
         lf_levels = (int(lf_y), int(lf_y), int(lf_u), int(lf_v))
         ins = {bs: torch.as_tensor(m, device=dev) for bs, m in inside.items()}
+        if qmap is not None:
+            qmap = torch.as_tensor(qmap, device=dev).to(torch.int32)
+
+        def qq(bs: int):
+            """The quantizer of residual coding at leaf size bs: the
+            frame q, or with aq the per-SB map expanded to the blocks."""
+            return q if qmap is None else _up(qmap, 64 // bs)
         sy = sy.to(torch.int32)
         su = su.to(torch.int32)
         sv = sv.to(torch.int32)
@@ -509,7 +529,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
 
         if rdo:
             use16, use32, use64, rd = _rd_decide(
-                sy, su, sv, padded, per_ref, mv, cost, q, lam, ac, ins)
+                sy, su, sv, padded, per_ref, mv, cost, qq, lam, ac, ins)
         else:
             # --- fast SAD-domain rate-biased partition merge on the
             # cheapest reference's cost at every size ------------------
@@ -562,7 +582,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         else:
             mv_sel, ref8, mv2_sel, levels, rec_planes = _fast_refine_code(
                 sy, su, sv, padded, per_ref, per_ref_mv, kind8, kpick,
-                sq_cells, q, lam)
+                sq_cells, qq, lam)
 
         # --- final recon: per-cell select of the chosen leaf's recon -----
         def select_plane(idx_plane, shift):
@@ -600,6 +620,9 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                               bd=bd)
         cv = DB.deblock_plane(cv, upc, lf_levels[3], lf_levels[3], False,
                               bd=bd)
+        # the deblocked (pre-CDEF) planes: loop restoration's stripe
+        # context rows come from these (spec save_deblock_boundary_lines)
+        deb = (cy, cu, cv)
 
         if cdef:
             # per-8x8-unit skip: the selected LEAF has all-zero levels
@@ -615,18 +638,21 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             damping = CD.pick_damping(q)
             (cy, cu, cv), idx_sb = CD.cdef_search_and_apply(
                 (cy, cu, cv), (crop(sy, 0), crop(su, 1), crop(sv, 1)), sk,
-                damping)
+                damping, coeff_shift=bd - 8)
             idx_sb = idx_sb.to(torch.uint8)
 
+        px = MC.pixel_dtype(bd)
         repad = lambda core, like: MC.edge_pad(
             core, 0, like.shape[0] - core.shape[0], 0,
-            like.shape[1] - core.shape[1]).to(torch.uint8)
+            like.shape[1] - core.shape[1]).to(px)
         out = (size8, mv_sel, ly_pack, lu_pack, lv_pack,
                repad(cy, rec_y), repad(cu, rec_u), repad(cv, rec_v), idx_sb)
         if nrefs >= 2:
             out = out + (ref8,)
         if compound:
             out = out + (mv2_sel,)
+        if lr:
+            out = out + tuple(p.to(px) for p in deb)
         return out
 
     def mc_one(padded, pidx, chroma, bs2, pad2, mvs, mvs_c, sel):
@@ -651,7 +677,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                               MC.jnt_average(m0, m1, bd), out)
         return out
 
-    def _rd_decide(sy, su, sv, padded, per_ref, mv, cost, q, lam, ac, ins):
+    def _rd_decide(sy, su, sv, padded, per_ref, mv, cost, qq, lam, ac, ins):
         """The RD presets' decision: 64x64 candidates per reference, the
         per-size argmin over the references and the compound candidate,
         residual coding of every leaf size against its own prediction,
@@ -745,9 +771,10 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                     sel[bs] == nrefs,
                     ME.mv_rate_bits(mv_c[bs] - per_ref[1][2][bs] * 8)
                     + COMP_EXTRA_BITS, 0)
-            ly, rec_y = _encode_plane(src_of[bs], pred_y, q, TX_OF[bs], bd)
-            lu, rec_u = _encode_plane(su_b, pred_u, q, TX_OF_C[bs], bd)
-            lv, rec_v = _encode_plane(sv_b, pred_v, q, TX_OF_C[bs], bd)
+            ly, rec_y = _encode_plane(src_of[bs], pred_y, qq(bs), TX_OF[bs],
+                                      bd)
+            lu, rec_u = _encode_plane(su_b, pred_u, qq(bs), TX_OF_C[bs], bd)
+            lv, rec_v = _encode_plane(sv_b, pred_v, qq(bs), TX_OF_C[bs], bd)
             sse = lambda a, b: ((a - b) ** 2).sum((-1, -2), dtype=torch.int32)
             d = sse(src_of[bs], rec_y) + sse(su_b, rec_u) + sse(sv_b, rec_v)
             r = _coeff_bits(ly) + _coeff_bits(lu) + _coeff_bits(lv) + base_r
@@ -762,7 +789,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                                      "sel": sel, "mv2": mv_c}
 
     def _fast_refine_code(sy, su, sv, padded, per_ref, per_ref_mv, kind8,
-                          kpick, sq_cells, q, lam):
+                          kpick, sq_cells, qq, lam):
         """Preset 8 after the merge: one quarter-pel refinement per 8x8
         cell and reference against the true reference (each LEAF picks
         the candidate minimizing the sum of its cells' SADs + MV rate),
@@ -875,12 +902,12 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         for bs in SIZES64:
             cbs = bs // 2
             ly, rec_y = _encode_plane(_block(sy, bs), _block(pred_y_pl, bs),
-                                      q, TX_OF[bs], bd)
+                                      qq(bs), TX_OF[bs], bd)
             lu, rec_u = _encode_plane(_block(su, cbs),
-                                      _block(pred_u_pl, cbs), q,
+                                      _block(pred_u_pl, cbs), qq(bs),
                                       TX_OF_C[bs], bd)
             lv, rec_v = _encode_plane(_block(sv, cbs),
-                                      _block(pred_v_pl, cbs), q,
+                                      _block(pred_v_pl, cbs), qq(bs),
                                       TX_OF_C[bs], bd)
             levels[bs] = (ly.to(torch.int16), lu.to(torch.int16),
                           lv.to(torch.int16))
@@ -935,7 +962,7 @@ def build_p_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
                               lr: bool = False, rect: bool = False,
                               filters: bool = True, aq: bool = False):
     """The P step for one geometry: step(sy, su, sv, ref_y, ref_u, ref_v,
-    qindex, lf_y, lf_u, lf_v[, gmv]) — every qindex runs the same
+    qindex, lf_y, lf_u, lf_v[, gmv][, qmap]) — every qindex runs the same
     callable (counterpart of the reference's jitted dynamic-q
     build_p_frame_encoder_dyn)."""
     return p_frame_step(ph, pw, mi_rows, mi_cols, search=search, bd=bd,
@@ -947,12 +974,13 @@ def build_p_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
 def build_b_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
                               cdef: bool = False, compound: bool = False,
                               bd: int = 8, filt: int = 0, rdo: bool = False,
-                              nrefs: int = 2):
+                              nrefs: int = 2, lr: bool = False,
+                              aq: bool = False):
     """The multi-reference step for one geometry: step(sy, su, sv,
     r0_y, r0_u, r0_v, r1_y, r1_u, r1_v[, r2_y, r2_u, r2_v], qindex, lf_y,
-    lf_u, lf_v); compound=True adds the COMPOUND_AVERAGE of (ref0, ref1),
-    nrefs=3 a third single-prediction reference (counterpart of the
-    reference's jitted build_b_frame_encoder_dyn)."""
+    lf_u, lf_v[, qmap]); compound=True adds the COMPOUND_AVERAGE of
+    (ref0, ref1), nrefs=3 a third single-prediction reference
+    (counterpart of the reference's jitted build_b_frame_encoder_dyn)."""
     return p_frame_step(ph, pw, mi_rows, mi_cols, nrefs=nrefs,
                         compound=compound, bd=bd, rdo=rdo, filt=filt,
-                        cdef=cdef)
+                        cdef=cdef, lr=lr, aq=aq)

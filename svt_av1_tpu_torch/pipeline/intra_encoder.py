@@ -1,10 +1,10 @@
 """Intra frame encoder in PyTorch: wavefront sweeps of batched blocks.
 
 Port of svt_av1_tpu/pipeline/intra_encoder.py with rich=False,
-ibc=False: ``frame_step`` (preset 8: uniform 8x8 luma / 4x4 chroma
-blocks) and ``frame_step16`` (presets 6-7: 16x16 units that keep the
-16x16 block or split into four 8x8 blocks by RD cost); 13 base luma
-modes, DC chroma, DCT residuals.
+ibc=False, at 8 or 10 bits: ``frame_step`` (preset 8: uniform 8x8 luma
+/ 4x4 chroma blocks) and ``frame_step16`` (presets 6-7: 16x16 units
+that keep the 16x16 block or split into four 8x8 blocks by RD cost);
+13 base luma modes, DC chroma, DCT residuals.
 
 A block predicts from its reconstructed above/left (and above-right)
 neighbours, so blocks are coded in staircase-diagonal order d = 2r + c:
@@ -24,6 +24,7 @@ import torch
 
 from svt_av1_tpu_torch import tables as _tbl
 from svt_av1_tpu_torch.ops import intra
+from svt_av1_tpu_torch.ops import mc as MC
 from svt_av1_tpu_torch.ops import quant as Q
 from svt_av1_tpu_torch.ops import transforms as T
 from svt_av1_tpu_torch.pipeline import rdo as RDO
@@ -76,11 +77,10 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
     sy [nbh,nbw,8,8], su/sv [nbh,nbw,4,4] source blocks (any integer
     dtype, on the working device); qindex a Python int.
     -> (modes [nbh,nbw] u8, levels_y [nbh,nbw,8,8] i16, levels_u,
-        levels_v [nbh,nbw,4,4] i16, recon_y [nbh,nbw,8,8] u8, recon_u,
-        recon_v) — the reference's output tuple with dynamic-q dtypes.
+        levels_v [nbh,nbw,4,4] i16, recon_y [nbh,nbw,8,8], recon_u,
+        recon_v: u8 at 8 bits, i16 at 10 (MC.pixel_dtype)) — the
+        reference's output tuple with dynamic-q dtypes.
     """
-    if bd != 8:
-        raise NotImplementedError("bit_depth=10 is not ported")
     dev = sy.device
     nbh, nbw = sy.shape[:2]
     cands = tuple(intra.ALL_MODES)
@@ -150,11 +150,11 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
             lp[rs, cs] = lc
 
     trim = lambda a: a[:nbh, :nbw]
+    px = MC.pixel_dtype(bd)
     return (trim(modes).to(torch.uint8),
             trim(ly).to(torch.int16), trim(lu).to(torch.int16),
             trim(lv).to(torch.int16),
-            trim(ry).to(torch.uint8), trim(ru).to(torch.uint8),
-            trim(rv).to(torch.uint8))
+            trim(ry).to(px), trim(ru).to(px), trim(rv).to(px))
 
 
 # --- multi-size keyframe wavefront (presets 6-7) ----------------------------
@@ -219,8 +219,6 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
     levels16_u / levels16_v [nuh,nuw,8,8] i16 (zero where the unit
     split)) — the reference's dynamic-q output tuple.
     """
-    if bd != 8:
-        raise NotImplementedError("bit_depth=10 is not ported")
     dev = sy.device
     nbh, nbw = sy.shape[:2]
     nuh, nuw = -(-nbh // 2), -(-nbw // 2)
@@ -396,11 +394,11 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
     trim = lambda a: a[:nbh, :nbw]
     trimu = lambda a: a[:nuh, :nuw]
     zeros8 = lambda *shape: torch.zeros(shape, dtype=torch.int8, device=dev)
+    px = MC.pixel_dtype(bd)
     return (trim(modes).to(torch.uint8),
             trim(ly8).to(torch.int16), trim(lu8).to(torch.int16),
             trim(lv8).to(torch.int16),
-            trim(ry).to(torch.uint8), trim(ru).to(torch.uint8),
-            trim(rv).to(torch.uint8),
+            trim(ry).to(px), trim(ru).to(px), trim(rv).to(px),
             zeros8(nbh, nbw),
             torch.full((nbh, nbw), intra.DC, dtype=torch.uint8, device=dev),
             zeros8(nbh, nbw, 2),

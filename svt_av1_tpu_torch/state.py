@@ -27,13 +27,20 @@ from svt_av1_tpu_torch.config import EncoderConfig
 def refs_from_numpy(y: np.ndarray, u: np.ndarray, v: np.ndarray,
                     device="cuda") -> tuple:
     """Reference planes (``np.asarray`` of the reference encoder's
-    ``Encoder._ref_dev``, 64-padded, uint8) as the port's device tensors."""
+    ``Encoder._ref_dev``, 64-padded; uint8 at 8 bits, uint16 at 10) as
+    the port's device tensors: uint8, or int16 for 10-bit pixels
+    (MC.pixel_dtype)."""
     planes = []
     for p in (y, u, v):
         a = np.asarray(p)
-        if a.dtype != np.uint8 or a.ndim != 2:
-            raise ValueError(f"reference plane must be 2-D uint8, got "
-                             f"{a.dtype} {a.shape}")
+        if a.dtype not in (np.uint8, np.uint16) or a.ndim != 2:
+            raise ValueError(f"reference plane must be 2-D uint8 or "
+                             f"uint16, got {a.dtype} {a.shape}")
+        if a.dtype == np.uint16:
+            if a.max(initial=0) > 1023:
+                raise ValueError("a uint16 reference plane holds more than "
+                                 "10 bits")
+            a = a.astype(np.int16)
         planes.append(torch.from_numpy(np.array(a)).to(device))
     return tuple(planes)
 
@@ -53,7 +60,7 @@ def config_from_reference(fields: dict) -> EncoderConfig:
 
 def store_from_reference(store: dict, device="cuda") -> dict:
     """The hierarchical-B slot book of the reference encoder
-    (``Encoder._store``: display index -> {"dev": 64-padded uint8 planes,
+    (``Encoder._store``: display index -> {"dev": 64-padded planes,
     "slot": reference slot, "pins": uses left}) as the port's, with the
     planes as the port's device tensors."""
     return {int(d): {"dev": refs_from_numpy(*(np.asarray(p) for p in e["dev"]),

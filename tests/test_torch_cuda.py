@@ -375,3 +375,100 @@ def test_kernel_equals_plain_at_1080p_rd_sites(cuda, dtype, bs, pad, reach,
     want = TG.gather_blocks_grid(T_(plane), T_(mv_r), T_(mv_c), bs, pad,
                                  reach, halo=halo, off=off)
     assert torch.equal(got.cpu(), want)
+
+
+# (bs, pad, reach, halo, off) of the 4K 10-bit preset-6 step's grid
+# sites, on int16 planes (the port's 10-bit container): the dense refine
+# per size, the 64x64 MC patch (71x71) and the largest chroma patch
+VOD4K_SITES = [
+    (8, 17, 16, 8, -4),
+    (16, 17, 16, 8, -4),
+    (32, 17, 16, 8, -4),
+    (64, 17, 17, 7, -3),
+    (32, 9, 9, 7, -3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,pad,reach,halo,off", VOD4K_SITES)
+def test_kernel_equals_plain_at_4k_10bit_sites(cuda, bs, pad, reach, halo,
+                                               off):
+    rng = np.random.default_rng(400 + bs + halo)
+    ph, pw = (2176, 3840) if pad == 17 else (1088, 1920)
+    nbh, nbw = ph // bs, pw // bs
+    plane = rng.integers(0, 1024, (ph + 2 * pad + 7,
+                                   pw + 2 * pad + 7)).astype(np.int16)
+    mv_r = rng.integers(-reach, reach + 1, (nbh, nbw)).astype(np.int32)
+    mv_c = rng.integers(-reach, reach + 1, (nbh, nbw)).astype(np.int32)
+    got = TG.gather_blocks_grid(T_(plane).to(cuda), T_(mv_r).to(cuda),
+                                T_(mv_c).to(cuda), bs, pad, reach,
+                                halo=halo, off=off)
+    want = TG.gather_blocks_grid(T_(plane), T_(mv_r), T_(mv_c), bs, pad,
+                                 reach, halo=halo, off=off)
+    assert got.dtype == torch.int16
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_warp_by_centers_equals_plain_at_4k_10bit(cuda):
+    """The ME warp gathers the 10-bit reference in its int16 container."""
+    from svt_av1_tpu_torch.ops import me as TME
+    rng = np.random.default_rng(41)
+    ref_pad = T_(rng.integers(0, 1024, (2176 + 32, 3840 + 32)).astype(
+        np.int16))
+    cen = T_(rng.integers(-13, 14, (68, 120, 2)).astype(np.int32))
+    got = TME.warp_by_centers(ref_pad.to(cuda), cen.to(cuda), 32, 16)
+    assert torch.equal(got.cpu(), TME.warp_by_centers(ref_pad, cen, 32, 16))
+
+
+@pytest.mark.cuda
+def test_rd_b_step_10bit_lr_aq_card_equals_cpu(cuda):
+    """The preset-6 three-reference step at 10 bits with the restoration
+    outputs and a per-SB qindex map at 192x128: 80 gather launches,
+    every output (the deblocked planes included) equal to the CPU
+    run's."""
+    from _torch_rd import step_planes
+    from svt_av1_tpu_torch.pipeline import inter_encoder as TPE
+    src, refs = step_planes(3)
+    rng = np.random.default_rng(9)
+    ten = lambda p: np.clip(p.astype(np.int32) * 4 + rng.integers(
+        0, 4, p.shape), 0, 1023).astype(np.int16)
+    planes = [T_(np.ascontiguousarray(ten(p))) for p in (*src, *refs)]
+    qmap = T_(np.array([[120, 200, 160], [90, 160, 230]], np.int32))
+    step = TPE.build_b_frame_encoder_dyn(128, 192, 32, 48, cdef=True,
+                                         compound=True, bd=10, rdo=True,
+                                         nrefs=3, lr=True, aq=True)
+    before = TG.gather_tiles.launches
+    card = step(*(p.to(cuda) for p in planes), 160, 30, 12, 12,
+                qmap.to(cuda))
+    torch.cuda.synchronize()
+    assert TG.gather_tiles.launches - before == 80
+    cpu = step(*planes, 160, 30, 12, 12, qmap)
+    assert len(card) == len(cpu) == 14
+    assert card[5].dtype == torch.int16
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_vod_encoder_card_equals_cpu(cuda):
+    """bench.py's 4K 10-bit VOD config at 200x136, nine frames of its
+    clip: the card writes the CPU's bytes and recon."""
+    from svt_av1_tpu_torch import EncoderConfig
+    from svt_av1_tpu_torch.io.yuv import vod_clip
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    kw = dict(width=200, height=136, qp=40, bit_depth=10, intra_period=-1,
+              pred_structure=2, hierarchical_levels=3, compound_mode=1,
+              enc_mode=6, enable_restoration=True,
+              enable_adaptive_quantization=True, recon_output=False,
+              scene_change_detection=False)
+    frames = vod_clip(200, 136, 9)
+    out = {d: list(Encoder(EncoderConfig(**kw), device=d).encode_all(frames))
+           for d in ("cuda", "cpu")}
+    assert len(out["cuda"]) == len(out["cpu"]) == 17
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.payload == b.payload
+        if a.recon is not None:
+            for p in ("y", "u", "v"):
+                assert np.array_equal(getattr(a.recon, p),
+                                      getattr(b.recon, p))

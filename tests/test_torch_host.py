@@ -19,13 +19,16 @@ ROOT = Path(__file__).resolve().parents[1]
 LDP = dict(width=128, height=64, intra_period=-1, pred_structure=0,
            scene_change_detection=False)
 
+# bench.py's run_vod_4k10 settings (at this file's small geometry):
+# 10-bit hier-B at preset 6 with restoration and adaptive quantization
+VOD = dict(qp=40, bit_depth=10, pred_structure=2, hierarchical_levels=3,
+           compound_mode=1, enc_mode=6, enable_restoration=True,
+           enable_adaptive_quantization=True, recon_output=False)
+
 GATES = [
     ("enc_mode<=5 (preset 5)", dict(enc_mode=5)),
     ("enc_mode<=5 (preset 0)", dict(enc_mode=0)),
-    ("bit_depth=10", dict(bit_depth=10)),
-    ("enable_adaptive_quantization", dict(enable_adaptive_quantization=1)),
     ("only CQP", dict(rate_control_mode=2, target_bit_rate=1000)),
-    ("enable_restoration", dict(enable_restoration=True)),
     ("enable_warped_motion", dict(enable_warped_motion=True)),
     ("IBC", dict(screen_content_mode=1)),
     ("enable_film_grain", dict(enable_film_grain=10)),
@@ -57,7 +60,13 @@ def test_unsupported_config_raises_by_name(label, extra):
                                    dict(pred_structure=2,
                                         scene_change_detection=True),
                                    dict(enc_mode=7),
-                                   dict(multi_ref=1)])
+                                   dict(multi_ref=1),
+                                   dict(bit_depth=10),
+                                   dict(enable_adaptive_quantization=1),
+                                   dict(enable_restoration=True),
+                                   dict(pred_structure=2,
+                                        enable_adaptive_quantization=2),
+                                   VOD])
 def test_slice_configs_pass(extra):
     check_slice(EncoderConfig(**{**LDP, **extra}))
 
@@ -68,11 +77,18 @@ def test_default_config_is_all_intra_and_allowed():
 
 @pytest.mark.parametrize("kw", [dict(rdo=True, txs=True),
                                 dict(rdo=True, rect=True),
-                                dict(compound=True, nrefs=1), dict(bd=10),
-                                dict(lr=True), dict(aq=True)])
+                                dict(compound=True, nrefs=1), dict(nrefs=4),
+                                dict(filters=False), dict(txs=True)])
 def test_p_frame_step_refuses_unported_variants(kw):
     with pytest.raises(NotImplementedError):
         TPE.p_frame_step(64, 64, 16, 16, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(bd=10), dict(lr=True), dict(aq=True),
+                                dict(bd=10, rdo=True, nrefs=3,
+                                     compound=True, lr=True, aq=True)])
+def test_p_frame_step_builds_ported_variants(kw):
+    assert callable(TPE.p_frame_step(64, 64, 16, 16, **kw))
 
 
 def test_tables_are_copies_of_the_reference():

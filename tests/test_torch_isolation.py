@@ -6,8 +6,11 @@ hook that refuses them, imports every module of svt_av1_tpu_torch (its
 CLI, svt_av1_tpu_torch.app.enc_app, included) and chip_smoke (without
 running it), and encodes a 64x64 IPPP clip, a 64x64 hierarchical-B clip
 with compound prediction, a 64x64 hierarchical-B clip at preset 7 (the
-16x16 keyframe search, a three-reference frame) and a 64x64 low-delay-B
-clip (through the Encoder and through the CLI) on the CPU end to end."""
+16x16 keyframe search, a three-reference frame), a 64x64 low-delay-B
+clip (through the Encoder and through the CLI) and a 64x64 10-bit hier-B
+clip at preset 6 with loop restoration and per-superblock adaptive
+quantization (the host restoration stage, ops/restoration) on the CPU
+end to end."""
 
 import subprocess
 import sys
@@ -46,6 +49,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401  (main() is not run)
 assert "svt_av1_tpu_torch.app.enc_app" in names
+assert "svt_av1_tpu_torch.ops.restoration" in names
 
 from svt_av1_tpu_torch import EncoderConfig
 from svt_av1_tpu_torch.io.yuv import synthetic_frame
@@ -79,6 +83,14 @@ assert enc_app.main(["-w", "64", "-h", "64", "--synthetic", "3",
                      "--intra-period", "-1", "--pred-struct", "1",
                      "-b", ivf, "--device", "cpu"]) == 0
 assert open(ivf, "rb").read(4) == b"DKIF"
+vod = list(Encoder(cfg.replace(bit_depth=10, pred_structure=2,
+                               hierarchical_levels=2, enc_mode=6,
+                               enable_restoration=True,
+                               enable_adaptive_quantization=2),
+                   device="cpu").encode_all(
+    [synthetic_frame(64, 64, seed=i, bit_depth=10) for i in range(5)]))
+coded = [p for p in vod if p.recon is not None]
+assert len(coded) == 5 and str(coded[0].recon.y.dtype) == "uint16"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names), "packets", [len(p.payload) for p in pkts])

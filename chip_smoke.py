@@ -17,7 +17,12 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 frame and of a 4K 10-bit preset-6 B frame (the 4K sites
                 also on int16 planes), and at awkward shapes (odd
                 widths, edge and off-contract starts, three dtypes),
-                exact equality (tolerance 0);
+                exact equality (tolerance 0); then the gather on stacks
+                of S planes (one launch for all S) at every site of a
+                4-stream 1080p P slot for S = 1, 2, 4 (u8 ME warp, int32
+                refine and MC patches), on stacks of awkward shapes, and
+                at the 32-bit limit (a 2^31-byte plane must raise; a
+                2.18 GB stack of two planes must gather exactly);
   4. main     — the 720p low-delay-P encode (1 keyframe + 7 P frames,
                 qp 40, preset 8) through Encoder.send_picture/get_packet;
                 the gather must launch 6 times per P frame;
@@ -55,6 +60,18 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 step, host restoration, host analysis, host entropy and
                 the rest, bytes, PSNR-Y, the restoration type per plane,
                 gathers and peak device memory;
+ 8b. main-batch — bench.py:115's all-intra config at its own size
+                (854x480, qp 40, device_batch 32, no recon): a 32-frame
+                warm-up batch, then 64 timed frames; per batch the wall
+                split into wavefront step, in-loop filters, host entropy
+                (thread pool) and the rest, frames/s, peak memory;
+ 8c. main-live — bench.py:221's live config at its own size: 4
+                lockstep 1920x1080 IPPP streams (qp 40, global motion
+                off) through MultiStreamEncoder, 2 warm-up and 12 timed
+                slots; the gather must launch 5 times per P slot for
+                the 4 streams (as for one stream's P frame); aggregate
+                frames/s, per slot the wall split into the batched step,
+                host entropy and the rest, peak memory;
   9. parity   — encoded on the card and on the CPU, each must give
                 byte-identical TUs and equal recon: a 320x192 IPPP clip
                 (1 keyframe + 2 P), a 192x128 hier-B clip (levels 2, 6
@@ -70,18 +87,25 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 --preset 7; IPPP at --bit-depth 10) run in this process
                 at --device cuda and at --device cpu on the same
                 synthetic input must write byte-identical IVF files;
+                and the batched entry points: a 192x128 all-intra clip
+                at device_batch 4 (6 frames, a partial last batch),
+                three lockstep 192x128 streams, two GOPs of 4 frames in
+                lockstep (GopShardedEncoder) and the CLI at --nch 2;
  10. timing   — at each call site, for both designs, one torch.take
                 call and the plain version: event ms (CUDA events around
                 20 back-to-back calls) and host us per call (perf_counter
                 around 200 calls issued without a synchronise) at every
                 site, then device us per call (torch.profiler kernel
                 time over 20 calls) at every site, beside the byte
-                bound.  Last, because a profiler session may slow every
-                later launch.
+                bound; at the batched 4x1080p P-slot sites also S
+                separate 2-D launches.  Late, because a profiler session
+                may slow every later launch;
+ 11. kernels  — CUDA kernels of the 480p all-intra device work for one
+                32-frame batch and for one frame (torch.profiler).
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  For gather_tiles, launches counts the
-main-path launches of phases 4 to 8; ms, device_ms, host_us,
+main-path launches of phases 4 to 8c; ms, device_ms, host_us,
 plain_ms, bound_ms and library_ms are sums over the six launches of one
 720p P frame, "per_1080p_b_frame" holds the same sums over the 13
 launches of one 1080p B frame, "per_1080p_ldb_frame" over the 10 of
@@ -89,7 +113,9 @@ one 1080p LDB frame (the B frame's sites without the compound
 patches) and "per_1080p_rd_b_frame" over the 80 of one 1080p preset-6
 B frame coded from three references with compound prediction, and
 "per_4k_10bit_rd_b_frame" over the 80 of one 4K 10-bit preset-6 B
-frame of the same kind.  --out
+frame of the same kind, and "per_4x1080p_p_slot" over the 5 batched
+launches of one 4-stream 1080p P slot (with the 20 launches four
+separate streams would make beside them).  --out
 DIR also writes the per-shape and per-frame numbers to
 DIR/chip_smoke.json.  Imports neither JAX nor the JAX package.
 """
@@ -145,6 +171,17 @@ RD_NREFS = {8: 1, 4: 2, 2: 3, 1: 3, 3: 3, 6: 2, 5: 3, 7: 2}
 # bench.py:185 run_vod_4k10, "Config 4": its EncoderConfig and its clip
 # (io.yuv.vod_clip), 9 frames: a keyframe and one levels-3 mini-GOP
 W4K, H4K, N_VOD = 3840, 2160, 9
+# bench.py:115 run_intra_480p ("Config 1"): all-intra 854x480, qp 40,
+# device_batch 32; a 32-frame warm-up batch, then 64 timed frames
+W480, H480, B480, N480 = 854, 480, 32, 64
+# bench.py:221 run_live_4x1080 ("Config 5"): 4 lockstep 1080p IPPP
+# streams, 2 warm-up slots and 12 timed slots; gather launches per P slot
+# (the batched P step without global motion: ME warp, cell refine, and
+# per plane the MC patch), the same for 1 stream as for 4
+N_STREAMS, LIVE_WARM, LIVE_TIMED = 4, 2, 12
+LIVE1080 = {"warp_by_centers": 1, "cell_refine": 1, "mc_patch_luma": 1,
+            "mc_patch_chroma": 2}
+LIVE_S = (1, 2, 4)          # stack sizes the batched gather is held at
 VOD_KW = dict(width=W4K, height=H4K, qp=40, bit_depth=10, intra_period=-1,
               pred_structure=2, hierarchical_levels=3, compound_mode=1,
               enc_mode=6, enable_restoration=True,
@@ -268,14 +305,19 @@ def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False, bd=8):
 
 
 def flat_index(torch, plane, br, bc, th, tw):
-    """Flat plane indices of every tile element (starts mapped as the
-    kernel maps them)."""
+    """Flat indices into plane (one plane, or a stack [S, Hp, Wp] with
+    [S, N] starts) of every tile element (starts mapped as the kernel
+    maps them)."""
     from svt_av1_tpu_torch.ops.gather import clamp_starts
-    hp, wp = plane.shape
+    hp, wp = plane.shape[-2:]
     r, c = clamp_starts(br, bc, hp, wp, th, tw)
-    rows = r[:, None] + torch.arange(th, device=plane.device)[None, :]
-    cols = c[:, None] + torch.arange(tw, device=plane.device)[None, :]
-    return rows[:, :, None] * wp + cols[:, None, :]
+    rows = r[..., None] + torch.arange(th, device=plane.device)
+    cols = c[..., None] + torch.arange(tw, device=plane.device)
+    idx = rows[..., :, None] * wp + cols[..., None, :]
+    if plane.dim() == 3:
+        s = torch.arange(plane.shape[0], device=plane.device)
+        idx = idx + (s * hp * wp).reshape(-1, 1, 1, 1)
+    return idx
 
 
 # (dtype, Hp, Wp, th, tw, nbh, nbw): odd and word-sized tile widths,
@@ -395,6 +437,418 @@ def kernel_phase(torch, MC, G, dev):
             exact(torch, fn(), want, f"{d} gather, {dt} {hp}x{wp} "
                   f"{th}x{tw} x{nbh * nbw}")
     return recs, timed
+
+
+def live_sites(torch, MC, G, gen, dev, S):
+    """(name, launches per P slot, plane stack, base_r, base_c,
+    gather_tiles kwargs) at every gather site of the 4-stream 1080p P
+    slot (bench.py:221; the batched P step at preset 8 without global
+    motion: the u8 ME warp, the i32 cell refine, luma and chroma MC
+    patches) with S streams stacked; motion uniform within each site's
+    reach."""
+    ph, pw = -(-H1080 // 64) * 64, -(-W1080 // 64) * 64
+    ry = torch.randint(0, 256, (S, ph, pw), generator=gen,
+                       dtype=torch.uint8).to(dev)
+    ru = torch.randint(0, 256, (S, ph // 2, pw // 2), generator=gen,
+                       dtype=torch.uint8).to(dev)
+    pad, cpad, search = 17, 9, 16
+
+    def mv(shape, reach):
+        return torch.randint(-reach, reach + 1, (S, *shape), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    ref_pad = MC.edge_pad(ry, search, search, search, search)
+    th, tw = ph // 32, pw // 32
+    cen = mv((th, tw, 2), 13)
+    ar = lambda k: torch.arange(k, dtype=torch.int32, device=dev)
+    br = (ar(th)[:, None] * 32 + search + cen[..., 0]).reshape(S, -1)
+    bc = (ar(tw)[None, :] * 32 + search + cen[..., 1]).reshape(S, -1)
+    sites = [("warp_by_centers", LIVE1080["warp_by_centers"], ref_pad, br,
+              bc, dict(nbh=th, nbw=tw, stride=32, band_off=0,
+                       band_h=2 * search + 32, th=32, tw=32))]
+    py_pad = MC.pad_for_filter(ry, pad)
+    pu_pad = MC.pad_for_filter(ru, cpad)
+    nb8 = (ph // 8, pw // 8)
+    for name, plane, reach, bs, pd, rch, halo, off in (
+            ("cell_refine", py_pad, 16, 8, pad, pad - 1, 8, -4),
+            ("mc_patch_luma", py_pad, 17, 8, pad, pad, 7, -3),
+            ("mc_patch_chroma", pu_pad, 9, 4, cpad, cpad, 7, -3)):
+        br, bc, kw = G.grid_tile_args(plane, mv(nb8, reach), mv(nb8, reach),
+                                      bs, pd, rch, halo, off)
+        sites.append((name, LIVE1080[name], plane, br, bc, kw))
+    return sites
+
+
+def batched_kernel_phase(torch, MC, G, dev):
+    """The gather on stacks of planes: exact against gather_tiles_ref at
+    every 4-stream 1080p P-slot site for S = 1, 2, 4 in one launch each,
+    on stacks of awkward shapes (negative, clamped and past-the-end
+    starts, odd tile widths, u8 / int16 / int32 planes), and at the
+    32-bit limit (a plane of 2^31 bytes must raise; a stack past 2^31
+    bytes whose planes are each below it must gather exactly).  Returns
+    the S = 4 records (with the byte bound) and the launches to time at
+    each site: the batched launch, S separate launches of the plain
+    2-D entry, torch.take and the plain version."""
+    gen = torch.Generator().manual_seed(1)
+    recs, timed = [], []
+    for S in LIVE_S:
+        for name, per_slot, plane, br, bc, kw in live_sites(
+                torch, MC, G, gen, dev, S):
+            th, tw = kw["th"], kw["tw"]
+            want = G.gather_tiles_ref(plane, br, bc, th, tw)
+            n0 = G.gather_tiles.launches
+            got = G.gather_tiles(plane, br, bc, **kw)
+            if G.gather_tiles.launches != n0 + 1:
+                raise AssertionError(f"batched gather at {name}, S={S}: "
+                                     f"not one launch")
+            err = exact(torch, got, want, f"batched gather at {name}, "
+                        f"S={S}")
+            if S != LIVE_S[-1]:
+                continue
+            idx = flat_index(torch, plane, br, bc, th, tw)
+            touched = torch.zeros(plane.numel(), dtype=torch.bool,
+                                  device=dev)
+            touched[idx.reshape(-1)] = True
+            n = br.numel()
+            es = plane.element_size()
+            nbytes = int(touched.sum()) * es + 8 * n + n * th * tw * es
+            flat = idx.reshape(S, -1, th, tw)
+            impls = {
+                "main": (lambda plane=plane, br=br, bc=bc, kw=kw:
+                         G.gather_tiles(plane, br, bc, **kw)),
+                "separate": (lambda plane=plane, br=br, bc=bc, kw=kw:
+                             [G.gather_tiles(plane[s], br[s], bc[s], **kw)
+                              for s in range(plane.shape[0])]),
+                "take": (lambda flat=flat, plane=plane:
+                         torch.take(plane, flat)),
+                "plain": (lambda plane=plane, br=br, bc=bc, th=th, tw=tw:
+                          G.gather_tiles_ref(plane, br, bc, th, tw))}
+            recs.append(dict(frame="4x1080p P slot", site=name,
+                             launches_per_frame=per_slot, streams=S,
+                             dtype=str(plane.dtype).replace("torch.", ""),
+                             plane=list(plane.shape), tiles=n,
+                             tile=[th, tw], max_abs_err=err, bytes=nbytes,
+                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+            timed.append(impls)
+    for dt, hp, wp, th, tw, nbh, nbw in AWKWARD:
+        dtype = getattr(torch, dt)
+        S = 3
+        plane = torch.randint(0, 256 if dt == "uint8" else 30000,
+                              (S, hp, wp), generator=gen,
+                              dtype=torch.int32).to(dtype).to(dev)
+        st = [awkward_starts(torch, gen, nbh * nbw, hp, wp, th, tw)
+              for _ in range(S)]
+        br = torch.stack([a for a, _ in st]).to(dev)
+        bc = torch.stack([b for _, b in st]).to(dev)
+        want = G.gather_tiles_ref(plane, br, bc, th, tw)
+        kw = dict(nbh=nbh, nbw=nbw, stride=0, band_off=0, band_h=hp, th=th,
+                  tw=tw)
+        impls = designs_of(G, plane, br, bc, kw)
+        impls["cuda"] = lambda: G.gather_tiles_cuda(plane, br, bc, th, tw)
+        for d, fn in impls.items():
+            exact(torch, fn(), want, f"{d} gather, stack of {S} {dt} "
+                  f"{hp}x{wp} {th}x{tw} x{nbh * nbw}")
+    limit_checks(torch, G, dev)
+    return recs, timed
+
+
+def limit_checks(torch, G, dev):
+    """The 32-bit limit: the wrapper and the extension both refuse a
+    plane of 2^31 bytes; a stack past 2^31 bytes (two planes of 1.09 GB)
+    gathers through 64-bit plane offsets, exactly."""
+    side = 46341
+    big = torch.zeros((1, side, side), dtype=torch.uint8, device=dev)
+    r = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    try:
+        G.gather_tiles_cuda(big, r, r, 8, 8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a 2^31-byte plane did not raise")
+    out = torch.empty((1, 4, 8, 8), dtype=torch.uint8, device=dev)
+    try:
+        G._kernel()(0, big.data_ptr(), 1, side, side, 1, r.data_ptr(),
+                    r.data_ptr(), out.data_ptr(), 4, 8, 8,
+                    G._raw_stream(big.get_device()))
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("the extension took a 2^31-byte plane")
+    del big
+    hw = 33000
+    stack = torch.randint(0, 256, (2, hw, hw), dtype=torch.uint8,
+                          device=dev)
+    br = torch.tensor([[0, hw - 16, -1], [hw - 64, hw - 8, 7]],
+                      dtype=torch.int32, device=dev)
+    bc = torch.tensor([[0, hw - 16, hw + 3], [hw - 64, hw - 8, -5]],
+                      dtype=torch.int32, device=dev)
+    exact(torch, G.gather_tiles_cuda(stack, br, bc, 8, 8),
+          G.gather_tiles_ref(stack, br, bc, 8, 8),
+          "gather from a 2.18 GB stack of two planes")
+    del stack
+    torch.cuda.empty_cache()
+
+
+def intra_batch_path(torch, svt):
+    """bench.py:115 at its own size: 854x480 all-intra, qp 40,
+    device_batch 32, no recon; one 32-frame warm-up batch, then 64 timed
+    frames (two batches) sent and drained.  Each batch's wall is read
+    around Encoder._dispatch_inbox and split into the wavefront step and
+    the in-loop filters (each synchronised), the host entropy (the
+    thread pool's wall: from the device outputs' arrival to the last
+    packet) and the rest (the uploads and the device->host copies).
+    Returns (timed packets, per-batch records, timed seconds, peak
+    GiB)."""
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline import intra_encoder as IE
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    frames = [synthetic_frame(W480, H480, seed=i) for i in range(N480)]
+    enc = Encoder(svt.EncoderConfig(width=W480, height=H480, qp=40,
+                                    device_batch=B480, recon_output=False),
+                  device="cuda")
+    recs, cur = [], [{}]
+
+    def sync_timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            cur[0][key] = cur[0].get(key, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    inbox, batch = enc._dispatch_inbox, enc._intra_batch
+
+    def dispatch():
+        cur[0] = {"frames": len(enc._inbox)}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inbox()
+        cur[0]["total_s"] = time.perf_counter() - t
+        recs.append(cur[0])
+
+    step_plain = IE.frame_step
+    IE.frame_step = sync_timed("step_s", step_plain)
+    enc._intra_postproc = sync_timed("postproc_s", enc._intra_postproc)
+    enc._intra_batch = sync_timed("device_s", batch)
+    enc._dispatch_inbox = dispatch
+    try:
+        for f in frames[:B480]:
+            enc.send_picture(f)
+        warm = [enc.get_packet() for _ in range(B480)]
+        recs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for f in frames:
+            enc.send_picture(f)
+        pkts = [enc.get_packet() for _ in frames]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        IE.frame_step = step_plain
+    if any(p is None for p in warm + pkts) or enc.get_packet() is not None:
+        raise AssertionError("the 480p batches held back or lost packets")
+    for r in recs:
+        r["entropy_s"] = r["total_s"] - r["device_s"]
+        r["other_s"] = r["device_s"] - r["step_s"] - r["postproc_s"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return pkts, recs, secs, peak
+
+
+def live_path(torch, G, svt):
+    """bench.py:221 at its own size: 4 lockstep 1920x1080 IPPP streams
+    (qp 40, global motion off) through MultiStreamEncoder.send, 2
+    warm-up slots (the keyframe and a P slot), then 12 timed P slots.
+    Per slot: the wall, the batched P step (synchronised), the host
+    entropy of the 4 streams (the thread pool's wall) and the gather
+    launches.  The source frames are made before the timed part.
+    Returns (per-slot records, timed seconds, peak GiB, gather launches
+    of the whole run, the packets of every slot)."""
+    import numpy as np
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline import inter_encoder as PE
+    from svt_av1_tpu_torch.pipeline.multistream import MultiStreamEncoder
+    cfg = svt.EncoderConfig(width=W1080, height=H1080, qp=40,
+                            intra_period=-1, pred_structure=0,
+                            recon_output=False,
+                            scene_change_detection=False,
+                            enable_global_motion=False)
+    bases = [synthetic_frame(W1080, H1080, seed=s)
+             for s in range(N_STREAMS)]
+
+    def slot(i):
+        out = []
+        for s in range(N_STREAMS):
+            f = synthetic_frame(W1080, H1080, seed=s)
+            f.y[:] = np.roll(bases[s].y, (i, 2 * i + s), (0, 1))
+            out.append(f)
+        return out
+
+    slots = [slot(i) for i in range(LIVE_WARM + LIVE_TIMED)]
+    ms = MultiStreamEncoder(cfg, N_STREAMS, device="cuda")
+    cur = [{}]
+    build = PE.build_p_frame_encoder_dyn
+
+    def timed_build(*a, **kw):
+        step = build(*a, **kw)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            cur[0]["step_s"] = time.perf_counter() - t
+            return out
+        return run
+
+    code = ms._code
+
+    def timed_code(make):
+        t = time.perf_counter()
+        out = code(make)
+        cur[0]["entropy_s"] = time.perf_counter() - t
+        return out
+
+    PE.build_p_frame_encoder_dyn = timed_build
+    ms._code = timed_code
+    recs, pkts = [], []
+    G.gather_tiles.launches = 0
+    try:
+        for i, fr in enumerate(slots):
+            if i == LIVE_WARM:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t_timed = time.perf_counter()
+            cur[0] = {}
+            n0 = G.gather_tiles.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pkts.append(ms.send(fr))
+            torch.cuda.synchronize()
+            cur[0]["total_s"] = time.perf_counter() - t
+            cur[0]["gathers"] = G.gather_tiles.launches - n0
+            cur[0]["bytes"] = [len(p.payload) for p in pkts[-1]]
+            recs.append(cur[0])
+        secs = time.perf_counter() - t_timed
+    finally:
+        PE.build_p_frame_encoder_dyn = build
+    launches = G.gather_tiles.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return recs, secs, peak, launches, pkts
+
+
+def batch_parity(svt):
+    """The batched entry points on the card and on the CPU: a 192x128
+    all-intra clip of 6 frames at device_batch 4 (a partial last batch
+    flushed by get_packet), three lockstep 192x128 streams
+    (MultiStreamEncoder, 3 slots), two 192x128 GOPs of 4 frames in
+    lockstep (GopShardedEncoder) and the CLI at --nch 2; TUs and IVF
+    files must be identical.  Returns the TU byte sizes."""
+    from svt_av1_tpu_torch.app import enc_app
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.parallel import GopShardedEncoder
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    from svt_av1_tpu_torch.pipeline.multistream import MultiStreamEncoder
+    w, h = 192, 128
+    flat = dict(width=w, height=h, qp=40, intra_period=-1, pred_structure=0,
+                scene_change_detection=False, recon_output=True)
+
+    def intra(device):
+        enc = Encoder(svt.EncoderConfig(width=w, height=h, qp=40,
+                                        device_batch=4, recon_output=True),
+                      device=device)
+        for i in range(6):
+            enc.send_picture(synthetic_frame(w, h, seed=100 + i))
+        enc.send_picture(None)
+        return list(iter(enc.get_packet, None))
+
+    def multi(device):
+        ms = MultiStreamEncoder(svt.EncoderConfig(**flat), 3, device=device)
+        return [p for i in range(3) for p in ms.send(
+            [synthetic_frame(w, h, seed=110 + 10 * s + i)
+             for s in range(3)])]
+
+    def gop(device):
+        enc = GopShardedEncoder(svt.EncoderConfig(**flat), 2, 4,
+                                device=device)
+        return list(enc.encode_all([synthetic_frame(w, h, seed=130 + i)
+                                    for i in range(8)]))
+
+    sizes = {}
+    for name, run, n in (("192x128 all-intra, device_batch 4, 6 frames",
+                          intra, 6),
+                         ("3 x 192x128 MultiStreamEncoder, 3 slots",
+                          multi, 9),
+                         ("192x128 GopShardedEncoder G=2 L=4", gop, 8)):
+        out = {d: run(d) for d in ("cuda", "cpu")}
+        if len(out["cuda"]) != n or len(out["cpu"]) != n:
+            raise AssertionError(f"{name}: expected {n} TUs")
+        for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+            if a.payload != b.payload or a.pts != b.pts:
+                raise AssertionError(f"{name}: card and CPU TUs differ at "
+                                     f"{i}")
+            for p in ("y", "u", "v") if a.recon is not None else ():
+                if (getattr(a.recon, p) != getattr(b.recon, p)).any():
+                    raise AssertionError(f"{name}: card/CPU recon differ: "
+                                         f"TU {i} {p}")
+        sizes[name] = [len(p.payload) for p in out["cuda"]]
+    with tempfile.TemporaryDirectory() as d:
+        ins = []
+        for ch in range(2):
+            path = Path(d) / f"in{ch}.yuv"
+            with open(path, "wb") as fh:
+                for i in range(3):
+                    f = synthetic_frame(w, h, seed=150 + 10 * ch + i)
+                    for pl in (f.y, f.u, f.v):
+                        fh.write(pl.tobytes())
+            ins.append(str(path))
+        ivf = {}
+        for device in ("cuda", "cpu"):
+            outs = [str(Path(d) / f"{device}{ch}.ivf") for ch in range(2)]
+            rc = enc_app.main(["-i", ",".join(ins), "-b", ",".join(outs),
+                               "-w", str(w), "-h", str(h), "-q", "40",
+                               "--intra-period", "2", "--nch", "2",
+                               "--device", device])
+            if rc != 0:
+                raise AssertionError(f"enc_app --nch 2 --device {device} "
+                                     f"exited {rc}")
+            ivf[device] = [Path(o).read_bytes() for o in outs]
+        if ivf["cuda"] != ivf["cpu"]:
+            raise AssertionError("CLI --nch 2: card and CPU IVF files differ")
+        sizes["192x128 CLI --nch 2 (IVF bytes)"] = [len(b) for b in
+                                                     ivf["cuda"]]
+    return sizes
+
+
+def kernel_counts(torch, svt):
+    """Device operations (kernels, copies, fills) of the 480p all-intra
+    device work (wavefront and in-loop filters) for one 32-frame batch
+    and for one frame, from one torch.profiler session each, read from
+    the raw trace events (key_averages() takes tens of seconds over
+    200k events); run last (a profiler session slows later launches).
+    Returns {frames: (operations, profiled seconds)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    enc = Encoder(svt.EncoderConfig(width=W480, height=H480, qp=40,
+                                    device_batch=B480, recon_output=False),
+                  device="cuda")
+    frames = [synthetic_frame(W480, H480, seed=i) for i in range(B480)]
+    out = {}
+    for fr in (frames, frames[:1]):
+        enc._intra_batch(fr, 160, part16=False, postproc=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            enc._intra_batch(fr, 160, part16=False, postproc=True)
+            torch.cuda.synchronize()
+        n = sum(e.device_type() == DeviceType.CUDA
+                for e in prof.profiler.kineto_results.events())
+        out[len(fr)] = (n, time.perf_counter() - t)
+    return out
 
 
 def timing_phase(recs, timed):
@@ -800,6 +1254,12 @@ def main() -> int:
           "4K 10-bit RD B call-site and awkward shapes", t)
 
     t = time.time()
+    bsites, btimed = batched_kernel_phase(torch, MC, G, dev)
+    phase("batched gather vs plain (exact) at the 4-stream 1080p P-slot "
+          "sites for S = 1, 2, 4, on stacks of awkward shapes, at the "
+          "32-bit limit", t)
+
+    t = time.time()
     cfg_kw = dict(width=W720, height=H720, qp=40, intra_period=-1,
                   pred_structure=0, recon_output=False,
                   scene_change_detection=False, enc_mode=8,
@@ -1006,17 +1466,80 @@ def main() -> int:
           "preset 6, restoration, AQ)", t)
 
     t = time.time()
+    ipkts, irecs, isecs, ipeak = intra_batch_path(torch, svt)
+    if len(ipkts) != N480 or not all(p.is_keyframe and p.payload
+                                     for p in ipkts):
+        raise AssertionError(f"expected {N480} non-empty keyframes")
+    if [p.pts for p in ipkts] != list(range(B480, B480 + N480)):
+        raise AssertionError("480p batch packets out of order")
+    if [r["frames"] for r in irecs] != [B480] * (N480 // B480):
+        raise AssertionError(f"480p batches of {[r['frames'] for r in irecs]}"
+                             f" frames, not {B480} each")
+    print(f"  480p all-intra batch {B480}: {N480} timed frames, "
+          f"{sum(len(p.payload) for p in ipkts)} bytes, "
+          f"{N480 / isecs:.3f} frames/s, peak device memory {ipeak:.2f} GiB",
+          flush=True)
+    for i, r in enumerate(irecs):
+        print(f"  batch {i}: {r['total_s'] * 1e3:.1f} ms = step "
+              f"{r['step_s'] * 1e3:.1f} + postproc {r['postproc_s'] * 1e3:.1f}"
+              f" + entropy {r['entropy_s'] * 1e3:.1f} + other "
+              f"{r['other_s'] * 1e3:.1f} ({r['frames']} frames)", flush=True)
+    phase("main path 480p all-intra batch (bench.py:115: device_batch 32, "
+          "32 warm-up + 64 timed frames)", t)
+
+    t = time.time()
+    lrecs, lsecs_live, lpeak, live_launches, lslots = live_path(torch, G,
+                                                                svt)
+    want_live = [0] + [sum(LIVE1080.values())] * (LIVE_WARM + LIVE_TIMED - 1)
+    if [r["gathers"] for r in lrecs] != want_live:
+        raise AssertionError(f"the 4x1080p path launched the gather "
+                             f"{[r['gathers'] for r in lrecs]} times per "
+                             f"slot, not {want_live}")
+    if (not all(p.is_keyframe for p in lslots[0])
+            or any(p.is_keyframe for sl in lslots[1:] for p in sl)
+            or any(len({p.payload for p in sl}) != N_STREAMS
+                   for sl in lslots)):
+        raise AssertionError("4x1080p: expected one keyframe slot, then P "
+                             "slots of 4 distinct streams")
+    print(f"  4x1080p live: {N_STREAMS * LIVE_TIMED / lsecs_live:.3f} "
+          f"frames/s aggregate over {LIVE_TIMED} timed slots, peak device "
+          f"memory {lpeak:.2f} GiB, gather launches {live_launches} "
+          f"({sum(LIVE1080.values())} per P slot for {N_STREAMS} streams)",
+          flush=True)
+    for i, r in enumerate(lrecs):
+        r["other_s"] = r["total_s"] - r.get("step_s", 0.0) - r["entropy_s"]
+        print(f"  slot {i} ({'key' if i == 0 else 'P'}): "
+              f"{r['total_s'] * 1e3:.1f} ms = step "
+              f"{r.get('step_s', 0.0) * 1e3:.1f} + entropy "
+              f"{r['entropy_s'] * 1e3:.1f} + other {r['other_s'] * 1e3:.1f}"
+              f"; {r['gathers']} gathers, bytes {r['bytes']}", flush=True)
+    phase("main path 4 x 1080p live IPPP in lockstep (bench.py:221: 2 "
+          "warm-up + 12 timed slots)", t)
+
+    t = time.time()
     sizes = parity_phase(svt)
+    sizes.update(batch_parity(svt))
     for name, sz in sizes.items():
         print(f"  {name} card == CPU, bytes {sz}", flush=True)
     phase("card vs CPU: 320x192 IPPP, 192x128 hier-B, 320x192 LDB, tiled "
           "look-ahead push_qp IPPP, preset 6 hier-B, preset 7 IPPP and "
-          "LDB, AQ 2 hier-B, 200x136 VOD config, CLI (also 10-bit)", t)
+          "LDB, AQ 2 hier-B, 200x136 VOD config, CLI (also 10-bit), "
+          "all-intra batch, multistream, GOP shards, CLI --nch 2", t)
 
     t = time.time()
-    timing_phase(sites, timed)
-    phase("gather timings at the 720p P, 1080p B, 1080p RD B and 4K 10-bit "
-          "RD B call sites", t)
+    timing_phase(sites + bsites, timed + btimed)
+    sites = sites + bsites
+    phase("gather timings at the 720p P, 1080p B, 1080p RD B, 4K 10-bit "
+          "RD B and batched 4x1080p P-slot call sites", t)
+
+    t = time.time()
+    kcount = kernel_counts(torch, svt)
+    for nf, (n, sec) in kcount.items():
+        print(f"  480p all-intra device work for {nf} frame(s): {n} device "
+              f"operations (kernels, copies, fills; profiled {sec:.1f} s)",
+              flush=True)
+    phase("kernels of one 480p batch of 32 frames and of one frame "
+          "(torch.profiler)", t)
 
     def tot(frame, get, per=None):
         """Sum of get(site) over one frame's main-path launches (per:
@@ -1044,22 +1567,31 @@ def main() -> int:
         "source": "svt_av1_tpu_torch/csrc/gather_tiles.cu",
         "replaces": "svt_av1_tpu/ops/gather.py:151",
         "launches": (launches + b_launches + ldb_launches + rd_launches
-                     + vod_launches),
+                     + vod_launches + live_launches),
         "max_abs_err": max(s["max_abs_err"] for s in sites),
         **per_frame("720p P"), "bound_by": "bytes",
         "per_1080p_b_frame": per_frame("1080p B"),
         "per_1080p_ldb_frame": per_frame("1080p B", LDB1080),
         "per_1080p_rd_b_frame": per_frame("1080p RD B"),
-        "per_4k_10bit_rd_b_frame": per_frame("4K RD B")}]}
-    for label, frame, per in (("720p P", "720p P", None),
-                              ("1080p B", "1080p B", None),
-                              ("1080p LDB", "1080p B", LDB1080),
-                              ("1080p RD B", "1080p RD B", None),
-                              ("4K 10-bit RD B", "4K RD B", None)):
-        for d in ["main", *(d for d in G.DESIGNS if d != G.MAIN_DESIGN),
-                  "take", "plain"]:
+        "per_4k_10bit_rd_b_frame": per_frame("4K RD B"),
+        "batched_entry": "gather_tiles on [S, Hp, Wp] planes, [S, N] starts",
+        "per_4x1080p_p_slot": dict(
+            per_frame("4x1080p P slot"),
+            launches_batched=sum(LIVE1080.values()),
+            launches_separate=N_STREAMS * sum(LIVE1080.values()),
+            separate_ms=tot("4x1080p P slot",
+                            lambda s: s["separate"]["ms"]))}]}
+    for label, frame, per in (("720p P frame", "720p P", None),
+                              ("1080p B frame", "1080p B", None),
+                              ("1080p LDB frame", "1080p B", LDB1080),
+                              ("1080p RD B frame", "1080p RD B", None),
+                              ("4K 10-bit RD B frame", "4K RD B", None),
+                              ("4x1080p P slot", "4x1080p P slot", None)):
+        extra = ["separate"] if frame == "4x1080p P slot" else \
+            [d for d in G.DESIGNS if d != G.MAIN_DESIGN]
+        for d in ["main", *extra, "take", "plain"]:
             dv = tot(frame, lambda s: s[d]["device_us"], per)
-            print(f"  per {label} frame, {d:6s}: event "
+            print(f"  per {label}, {d:6s}: event "
                   f"{tot(frame, lambda s: s[d]['ms'], per):.4f} ms, device "
                   f"{'not measured' if dv is None else f'{dv:.2f} us'}, "
                   f"host {tot(frame, lambda s: s[d]['host_us'], per):.2f} "
@@ -1093,6 +1625,14 @@ def main() -> int:
                          "launches": vod_launches,
                          "leaf16_cells": vcoded[0].leaf16_cells,
                          "compound_cells": vcomp},
+            "intra_480p_batch": {"frames_per_s": N480 / isecs,
+                                 "batches": irecs, "peak_gib": ipeak,
+                                 "kernels": {str(k): v for k, v in
+                                             kcount.items()}},
+            "live_4x1080p": {"frames_per_s":
+                             N_STREAMS * LIVE_TIMED / lsecs_live,
+                             "slots": lrecs, "peak_gib": lpeak,
+                             "launches": live_launches},
             "parity_tu_bytes": sizes,
             "kernels": kernels["kernels"],
             "total_s": time.time() - t0}, indent=1))

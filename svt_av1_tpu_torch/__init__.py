@@ -13,7 +13,8 @@ Package map (each module names its counterpart in svt_av1_tpu):
   entropy/    range coder, CDF model, symbol layer, OBUs, C++ coder (copy)
   ops/        transforms, quant, intra, deblock, CDEF, gather, MC, ME
   pipeline/   intra wavefront, P/B-frame step, tile writer, GOP planner,
-              look-ahead window, Encoder
+              look-ahead window, Encoder, MultiStreamEncoder
+  parallel/   GopShardedEncoder (GOPs of one stream in lockstep)
   app/        the encoder CLI (python -m svt_av1_tpu_torch.app.enc_app)
   state       carrying reference state over from the JAX encoder
 """

@@ -25,9 +25,12 @@ preset):
 
 ``--bit-depth 10`` (raw little-endian 16-bit samples, or
 ``--compressed-ten-bit 1``) writes 16-bit recon files, as the reference
-CLI does.  Settings the port does not run yet (``--nch > 1``,
-``--gop-shards > 1``, ``--scm``, ``--rc``, presets below 6, ...) exit
-non-zero with the refusal's text.
+CLI does.  ``--nch N`` encodes N same-geometry channels in lockstep
+(MultiStreamEncoder: ``-i`` and ``-b`` take N comma-separated paths);
+``--gop-shards G`` (with ``--pred-struct 0`` and ``--intra-period >=
+1``) encodes G GOPs of the one stream in lockstep (GopShardedEncoder).
+Settings the port does not run yet (``--scm``, ``--rc``, presets below
+6, ...) exit non-zero with the refusal's text.
 
 Run: python -m svt_av1_tpu_torch.app.enc_app -w 854 -h 480 -q 40 \\
          --synthetic 8 --intra-period -1 --pred-struct 1 -b out.ivf \\
@@ -112,9 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="target bitrate (bits/s) for VBR/CVBR")
     p.add_argument("--lookahead", dest="lookahead", type=int, default=0)
     p.add_argument("--nch", type=int, default=1,
-                   help="channels (multi-stream; not yet ported)")
+                   help="channels: N lockstep streams batched per device "
+                        "step (comma-separated -i / -b paths)")
     p.add_argument("--gop-shards", type=int, default=1,
-                   help="GOP sharding over devices (not yet ported)")
+                   help="GOPs of the stream encoded in lockstep (needs "
+                        "--pred-struct 0 and --intra-period >= 1)")
     p.add_argument("--scm", dest="scm", type=int, default=0,
                    help="screen content mode: 0 off, 1 on, 2 auto "
                         "(not yet ported)")
@@ -163,9 +168,7 @@ def main(argv=None) -> int:
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
 
     if args.nch > 1:
-        print("enc_app: not yet ported to svt_av1_tpu_torch: --nch>1 "
-              "(multistream)", file=sys.stderr)
-        return 2
+        return run_multichannel(args)
     if args.synthetic:
         if not (args.width and args.height):
             print("--synthetic requires -w and -h", file=sys.stderr)
@@ -196,8 +199,19 @@ def main(argv=None) -> int:
                         recon_output=bool(args.recon) or args.stat_report,
                         screen_content_mode=args.scm,
                         num_gop_shards=args.gop_shards)
+    if args.gop_shards > 1 and (args.pred_struct != 0
+                                or args.intra_period < 1):
+        print("--gop-shards needs --pred-struct 0 and --intra-period >= 1",
+              file=sys.stderr)
+        return 2
     try:
-        enc = Encoder(cfg, device=args.device)
+        if args.gop_shards > 1:
+            from svt_av1_tpu_torch.parallel import GopShardedEncoder
+            enc = GopShardedEncoder(cfg, args.gop_shards,
+                                    args.intra_period + 1,
+                                    device=args.device)
+        else:
+            enc = Encoder(cfg, device=args.device)
     except (NotImplementedError, RuntimeError) as e:
         # a setting the port does not run yet, or no CUDA device
         print(f"enc_app: {e}", file=sys.stderr)
@@ -305,6 +319,70 @@ def main(argv=None) -> int:
     print(f"encoded {n_out} frames in {dt:.2f}s ({n_out / max(dt, 1e-9):.2f} "
           f"fps), {total} bytes (~{kbps:.0f} kbps @ {args.fps}fps) on "
           f"{enc.device}", file=sys.stderr)
+    return 0
+
+
+def run_multichannel(args) -> int:
+    """--nch N lockstep channels (ref EbAppMain.c:196-215 multi-channel
+    instances): N same-geometry streams batched per device step through
+    MultiStreamEncoder; -i/-b take comma-separated per-channel paths."""
+    from svt_av1_tpu_torch.config import EncoderConfig
+    from svt_av1_tpu_torch.io import IvfWriter
+    from svt_av1_tpu_torch.pipeline.multistream import MultiStreamEncoder
+
+    n = args.nch
+    ins = (args.input or "").split(",")
+    outs = (args.output or "").split(",") if args.output else [None] * n
+    if len(ins) != n or len(outs) != n:
+        print("--nch N needs N comma-separated -i (and -b) paths",
+              file=sys.stderr)
+        return 2
+    readers = []
+    width = height = None
+    for path in ins:
+        r, w, h = open_reader(path, args)
+        if width is None:
+            width, height = w, h
+        elif (w, h) != (width, height):
+            print("all channels must share one geometry", file=sys.stderr)
+            return 2
+        readers.append(r.frames())
+    cfg = EncoderConfig(width=width, height=height, qp=args.qp,
+                        enc_mode=args.preset, bit_depth=args.bit_depth,
+                        intra_period=args.intra_period, pred_structure=0,
+                        recon_output=False,
+                        scene_change_detection=False)
+    try:
+        ms = MultiStreamEncoder(cfg, n, device=args.device)
+    except (NotImplementedError, RuntimeError, ValueError) as e:
+        # a setting the port does not run yet, or no CUDA device
+        print(f"enc_app: {e}", file=sys.stderr)
+        return 2
+    writers = [IvfWriter(open(o, "wb"), width, height, args.fps, 1)
+               if o else None for o in outs]
+    t0 = time.perf_counter()
+    done = 0
+    while not args.frames or done < args.frames:
+        batch = []
+        for r in readers:
+            f = next(r, None)
+            if f is None:
+                break
+            batch.append(f)
+        if len(batch) < n:
+            break
+        for ch, pkt in enumerate(ms.send(batch)):
+            if writers[ch]:
+                writers[ch].write_frame(pkt.payload, pkt.pts)
+        done += 1
+    for wtr in writers:
+        if wtr:
+            wtr.finalize()
+            wtr.fh.close()
+    dt = time.perf_counter() - t0
+    print(f"encoded {done} frames x {n} channels in {dt:.2f}s "
+          f"({done * n / max(dt, 1e-9):.2f} fps aggregate) on {ms.device}",
+          file=sys.stderr)
     return 0
 
 

@@ -232,9 +232,11 @@ def check_slice(cfg: EncoderConfig) -> None:
     frame-level q offset; 2: plus per-superblock delta-q on hier-B
     inter frames), scene-change detection (the flat structures; hier-B
     ignores it, as the reference package does), look-ahead q offsets
-    (the flat structures) and tiled inter frames.  Everything else is
-    refused by name rather than encoded differently from the reference
-    package.
+    (the flat structures) and tiled inter frames; all-intra batches of
+    ``device_batch`` frames, and ``num_gop_shards`` (which, as in the
+    reference package, only the CLI's GopShardedEncoder reads).
+    Everything else is refused by name rather than encoded differently
+    from the reference package.
     """
     inter = not cfg.intra_only
     hier = inter and cfg.pred_structure == PRED_STRUCT_RANDOM_ACCESS
@@ -247,8 +249,6 @@ def check_slice(cfg: EncoderConfig) -> None:
         "enable_film_grain": bool(cfg.enable_film_grain),
         "look_ahead_distance>0 with pred_structure=2":
             hier and cfg.look_ahead_distance > 0,
-        "device_batch>1": cfg.device_batch > 1,
-        "num_gop_shards>1": cfg.num_gop_shards > 1,
     }
     enabled = [k for k, v in gates.items() if v]
     if enabled:

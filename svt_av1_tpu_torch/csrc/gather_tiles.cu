@@ -2,11 +2,17 @@
 // compensation of svt_av1_tpu_torch (ops/gather.py::gather_tiles).
 //
 // Replaces the TPU kernel svt_av1_tpu/ops/gather.py:151
-// (_gather_tiles_pallas): for a 2-D plane [Hp, Wp] and N tiles,
-// out[k] = plane[r_k : r_k + th, c_k : c_k + tw], with the start mapped
-// exactly as lax.dynamic_slice maps it (the reference's CPU path): a
-// negative start is first taken from the end (+ Hp / + Wp), then clamped
-// to [0, Hp - th] x [0, Wp - tw].  Planes of 1, 2 or 4-byte pixels.
+// (_gather_tiles_pallas): for a stack of S planes [S, Hp, Wp] and N
+// tiles per plane, out[s, k] = plane[s, r_sk : r_sk + th, c_sk : c_sk +
+// tw], with the start mapped exactly as lax.dynamic_slice maps it (the
+// reference's CPU path): a negative start is first taken from the end
+// (+ Hp / + Wp), then clamped to [0, Hp - th] x [0, Wp - tw].  Planes of
+// 1, 2 or 4-byte pixels.  S = 1 is the single-plane gather; S > 1 is the
+// reference's kernel under jax.vmap (a batch grid axis): the S planes of
+// a batched step (multi-stream encoding) gather in one launch, plane s
+// on blockIdx.y = s.  Each plane, its starts and its output are reached
+// through a 64-bit offset; inside a plane the indexing is 32-bit, so a
+// plane or one plane's output of 2^31 bytes or more is refused.
 //
 // Bound on the H100: bytes.  The least time is the bytes the gather must
 // move -- each plane byte it touches read once, the two int32 start
@@ -104,25 +110,31 @@ __device__ __forceinline__ void copy_tile(const Src& src, U* __restrict__ dst,
 // row pitch % 4 == 0).
 template <typename U, bool kWords>
 __global__ void __launch_bounds__(kWarps * 32)
-    gather_tiles_direct(const void* __restrict__ plane, int hp, int wp,
+    gather_tiles_direct(const void* __restrict__ planes, int hp, int wp,
                         int esize, const int32_t* __restrict__ base_r,
                         const int32_t* __restrict__ base_c,
                         U* __restrict__ out, int n, int th, int tw) {
   const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (k >= n) return;
-  const int r0 = map_start(base_r[k], hp, th);
-  const int c0 = map_start(base_c[k], wp, tw);
+  // plane s of the stack: 64-bit offsets to its pixels, starts and
+  // output; 32-bit indexing inside it
+  const size_t s = blockIdx.y;
+  const char* plane =
+      static_cast<const char*>(planes) + s * hp * wp * (size_t)esize;
+  const int r0 = map_start(base_r[s * n + k], hp, th);
+  const int c0 = map_start(base_c[s * n + k], wp, tw);
   const int lane = threadIdx.x & 31;
   if constexpr (kWords) {
     const int pitch_b = wp * esize;
     const int b = r0 * pitch_b + c0 * esize;
     const int tu = tw * esize >> 2;
-    const WordSrc src{static_cast<const uint32_t*>(plane) + (b >> 2),
+    const WordSrc src{reinterpret_cast<const uint32_t*>(plane) + (b >> 2),
                       pitch_b >> 2, static_cast<unsigned>(b & 3) * 8u};
-    copy_tile(src, out + k * th * tu, th, tu, lane);
+    copy_tile(src, out + s * n * th * tu + k * th * tu, th, tu, lane);
   } else {
-    const PixelSrc<U> src{static_cast<const U*>(plane) + r0 * wp + c0, wp};
-    copy_tile(src, out + k * th * tw, th, tw, lane);
+    const PixelSrc<U> src{reinterpret_cast<const U*>(plane) + r0 * wp + c0,
+                          wp};
+    copy_tile(src, out + s * n * th * tw + k * th * tw, th, tw, lane);
   }
 }
 
@@ -164,33 +176,45 @@ void launch_v1(const void* plane, int hp, int wp, const int32_t* base_r,
 }
 
 template <typename U, bool kWords>
-void launch_direct(const void* plane, int hp, int wp, int esize,
+void launch_direct(const void* plane, int ns, int hp, int wp, int esize,
                    const int32_t* base_r, const int32_t* base_c, void* out,
                    int n, int th, int tw, cudaStream_t s) {
-  const int blocks = (n + kWarps - 1) / kWarps;
+  const dim3 blocks((n + kWarps - 1) / kWarps, ns);
   gather_tiles_direct<U, kWords><<<blocks, kWarps * 32, 0, s>>>(
       plane, hp, wp, esize, base_r, base_c, static_cast<U*>(out), n, th, tw);
 }
 
-// design: 0 = direct, 1 = v1.  The caller guarantees int32 starts and a
-// contiguous plane and output; a plane or an output of 2^31 bytes or
-// more is refused (32-bit indexing).
-cudaError_t gather(int design, const void* plane, int hp, int wp,
+// design: 0 = direct, 1 = v1.  ns planes of [hp, wp] back to back, n
+// starts and n tiles per plane.  The caller guarantees int32 starts and
+// contiguous planes and output; a plane or one plane's output of 2^31
+// bytes or more is refused (32-bit indexing inside a plane), and so are
+// more planes than a grid's y dimension holds.
+cudaError_t gather(int design, const void* plane, int ns, int hp, int wp,
                    int elem_bytes, const void* base_r, const void* base_c,
                    void* out, int n, int th, int tw, cudaStream_t s) {
-  if (n == 0) return cudaSuccess;
-  if (n < 0 || th <= 0 || tw <= 0 || th > hp || tw > wp ||
+  if (n == 0 || ns == 0) return cudaSuccess;
+  if (n < 0 || ns < 0 || ns > 65535 || th <= 0 || tw <= 0 || th > hp ||
+      tw > wp ||
       (long long)hp * wp * elem_bytes > INT_MAX ||
       (long long)n * th * tw * elem_bytes > INT_MAX)
     return cudaErrorInvalidValue;
   const int32_t* br = static_cast<const int32_t*>(base_r);
   const int32_t* bc = static_cast<const int32_t*>(base_c);
   if (design == 1) {
-    switch (elem_bytes) {
-      case 1: launch_v1<uint8_t>(plane, hp, wp, br, bc, out, n, th, tw, s); break;
-      case 2: launch_v1<uint16_t>(plane, hp, wp, br, bc, out, n, th, tw, s); break;
-      case 4: launch_v1<uint32_t>(plane, hp, wp, br, bc, out, n, th, tw, s); break;
-      default: return cudaErrorInvalidValue;
+    // the yardstick gathers one plane per launch
+    const size_t plane_b = (size_t)hp * wp * elem_bytes;
+    const size_t out_b = (size_t)n * th * tw * elem_bytes;
+    for (int k = 0; k < ns; ++k) {
+      const void* p = static_cast<const char*>(plane) + k * plane_b;
+      void* o = static_cast<char*>(out) + k * out_b;
+      const int32_t* r = br + (size_t)k * n;
+      const int32_t* c = bc + (size_t)k * n;
+      switch (elem_bytes) {
+        case 1: launch_v1<uint8_t>(p, hp, wp, r, c, o, n, th, tw, s); break;
+        case 2: launch_v1<uint16_t>(p, hp, wp, r, c, o, n, th, tw, s); break;
+        case 4: launch_v1<uint32_t>(p, hp, wp, r, c, o, n, th, tw, s); break;
+        default: return cudaErrorInvalidValue;
+      }
     }
     return cudaGetLastError();
   }
@@ -200,21 +224,21 @@ cudaError_t gather(int design, const void* plane, int hp, int wp,
   const bool rows4 = (wp * elem_bytes) % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(plane) % 4 == 0;
   if (elem_bytes < 4 && rows4 && (tw * elem_bytes) % 4 == 0) {
-    launch_direct<uint32_t, true>(plane, hp, wp, elem_bytes, br, bc, out, n,
-                                  th, tw, s);
+    launch_direct<uint32_t, true>(plane, ns, hp, wp, elem_bytes, br, bc, out,
+                                  n, th, tw, s);
   } else {
     switch (elem_bytes) {
       case 1:
-        launch_direct<uint8_t, false>(plane, hp, wp, 1, br, bc, out, n, th,
-                                      tw, s);
+        launch_direct<uint8_t, false>(plane, ns, hp, wp, 1, br, bc, out,
+                                      n, th, tw, s);
         break;
       case 2:
-        launch_direct<uint16_t, false>(plane, hp, wp, 2, br, bc, out, n, th,
-                                       tw, s);
+        launch_direct<uint16_t, false>(plane, ns, hp, wp, 2, br, bc, out,
+                                       n, th, tw, s);
         break;
       case 4:
-        launch_direct<uint32_t, false>(plane, hp, wp, 4, br, bc, out, n, th,
-                                       tw, s);
+        launch_direct<uint32_t, false>(plane, ns, hp, wp, 4, br, bc, out,
+                                       n, th, tw, s);
         break;
       default:
         return cudaErrorInvalidValue;
@@ -223,15 +247,16 @@ cudaError_t gather(int design, const void* plane, int hp, int wp,
   return cudaGetLastError();
 }
 
-// gather_tiles(design, plane, hp, wp, elem_bytes, base_r, base_c, out, n,
-// th, tw, stream): pointers and the stream handle as Python ints.  A
+// gather_tiles(design, plane, ns, hp, wp, elem_bytes, base_r, base_c,
+// out, n, th, tw, stream): pointers and the stream handle as Python ints
+// (ns planes, n tiles per plane).  A
 // METH_FASTCALL binding, so the call itself costs about 0.3 us of host
 // time on the H100's host (tools/gather_host_costs.py), against a kernel
 // of 2-10 us.
 PyObject* py_gather_tiles(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
-  constexpr int kArgs = 12;
+  constexpr int kArgs = 13;
   if (nargs != kArgs) {
-    PyErr_SetString(PyExc_TypeError, "gather_tiles takes 12 arguments");
+    PyErr_SetString(PyExc_TypeError, "gather_tiles takes 13 arguments");
     return nullptr;
   }
   long v[kArgs];
@@ -242,8 +267,8 @@ PyObject* py_gather_tiles(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   auto ptr = [](long x) { return reinterpret_cast<void*>(x); };
   const cudaError_t err =
       gather((int)v[0], ptr(v[1]), (int)v[2], (int)v[3], (int)v[4],
-             ptr(v[5]), ptr(v[6]), ptr(v[7]), (int)v[8], (int)v[9],
-             (int)v[10], static_cast<cudaStream_t>(ptr(v[11])));
+             (int)v[5], ptr(v[6]), ptr(v[7]), ptr(v[8]), (int)v[9],
+             (int)v[10], (int)v[11], static_cast<cudaStream_t>(ptr(v[12])));
   if (err != cudaSuccess) {
     PyErr_Format(PyExc_RuntimeError,
                  "gather_tiles kernel launch failed: CUDA error %d (%s)",

@@ -13,6 +13,10 @@ the reference kernels (cdef_find_dir_c, EbCdef.c:129; cdef_filter_block_c
   filters in one pass;
 - out-of-frame samples are CDEF_VERY_LARGE, which self-masks in
   constrain() and is excluded from the min/max clamp.
+
+Planes and maps may carry leading frame dims ([..., H, W]): a batched
+step filters S frames at once, and the strength search still picks per
+frame and per 64x64.
 """
 
 from __future__ import annotations
@@ -72,21 +76,21 @@ def _bins_on(device: torch.device):
 def find_dir_grid(luma, coeff_shift: int = 0):
     """Per-8x8-block (direction, variance) over a whole plane.
 
-    luma: [H, W] int32 (H, W multiples of 8).  Returns (dir [h8, w8],
-    var [h8, w8]) int32 — exact cdef_find_dir_c semantics
-    (x = (img >> coeff_shift) - 128, EbCdef.c:146)."""
-    H, W = luma.shape
+    luma: [..., H, W] int32 (H, W multiples of 8).  Returns (dir
+    [..., h8, w8], var [..., h8, w8]) int32 — exact cdef_find_dir_c
+    semantics (x = (img >> coeff_shift) - 128, EbCdef.c:146)."""
+    *lead, H, W = luma.shape
     h8, w8 = H // 8, W // 8
-    x = ((luma.reshape(h8, 8, w8, 8).permute(0, 2, 1, 3)
-          .reshape(h8 * w8, 64).to(torch.int32) >> coeff_shift) - 128)
+    x = ((luma.reshape(*lead, h8, 8, w8, 8).transpose(-3, -2)
+          .reshape(-1, 64).to(torch.int32) >> coeff_shift) - 128)
     bins = _bins_on(luma.device)
     # partial[f][:, b] = sum of the block's pixels in bin b of family f
     # (integer adds: exact in any order)
     p = []
     for f in range(8):
-        acc = torch.zeros((h8 * w8, 15), dtype=torch.int32,
+        acc = torch.zeros((x.shape[0], 15), dtype=torch.int32,
                           device=luma.device)
-        p.append(acc.index_add_(1, bins[f], x).reshape(h8, w8, 15))
+        p.append(acc.index_add_(1, bins[f], x).reshape(*lead, h8, w8, 15))
 
     div = _DIV_TABLE
     cost = [None] * 8
@@ -103,9 +107,9 @@ def find_dir_grid(luma, coeff_shift: int = 0):
             c = c + (p[d][..., j] ** 2 + p[d][..., 10 - j] ** 2) \
                 * div[2 * j + 2]
         cost[d] = c
-    costs = torch.stack(cost, dim=-1)               # [h8, w8, 8]
+    costs = torch.stack(cost, dim=-1)               # [..., h8, w8, 8]
     # best_dir: first maximum with cost > 0 (C scans in order with >)
-    best = torch.zeros(costs.shape[:2], dtype=torch.int32,
+    best = torch.zeros(costs.shape[:-1], dtype=torch.int32,
                        device=luma.device)
     best_cost = torch.zeros_like(best)
     for d in range(8):
@@ -142,23 +146,24 @@ def adjust_strength(strength, var):
 
 
 def _up(a, k: int):
-    return a.repeat_interleave(k, 0).repeat_interleave(k, 1)
+    """[..., h, w] -> [..., h*k, w*k]."""
+    return a.repeat_interleave(k, -2).repeat_interleave(k, -1)
 
 
 def _shifted_planes(plane):
     """{(d, k, sign): plane shifted by sign * DIRS[d, k]} with
     VERY_LARGE outside the frame."""
-    H, W = plane.shape
-    pad = torch.full((H + 4, W + 4), VERY_LARGE, dtype=torch.int32,
+    *lead, H, W = plane.shape
+    pad = torch.full((*lead, H + 4, W + 4), VERY_LARGE, dtype=torch.int32,
                      device=plane.device)
-    pad[2:-2, 2:-2] = plane
+    pad[..., 2:-2, 2:-2] = plane
     shifted = {}
     for d in range(8):
         for k in range(2):
             for sgn in (1, -1):
                 dy = int(DIRS[d, k, 0]) * sgn
                 dx = int(DIRS[d, k, 1]) * sgn
-                shifted[(d, k, sgn)] = pad[2 + dy: 2 + dy + H,
+                shifted[(d, k, sgn)] = pad[..., 2 + dy: 2 + dy + H,
                                            2 + dx: 2 + dx + W]
     return shifted
 
@@ -246,7 +251,7 @@ def _unit_strengths(idx_sb, skip_units, strengths, h_units, w_units,
     << coeff_shift for high bit depth; ref EbCdef.c:284-285)."""
     pri_tab = [s[0] << coeff_shift for s in strengths]
     sec_tab = [(s[1] + (s[1] == 3)) << coeff_shift for s in strengths]
-    idx_u = _up(idx_sb, units_per_sb)[:h_units, :w_units]
+    idx_u = _up(idx_sb, units_per_sb)[..., :h_units, :w_units]
     pri = torch.full_like(idx_u, pri_tab[0])
     sec = torch.full_like(idx_u, sec_tab[0])
     for i in range(1, len(strengths)):
@@ -262,28 +267,31 @@ def cdef_search_and_apply(planes, srcs, skip8, damping: int,
     """Encoder: try every frame-list strength per 64x64, pick by SSE
     against the source, return (filtered planes, idx_sb int32).
 
-    planes / srcs: (y, u, v) int32 [H, W] / [H/2, W/2]; skip8 [H/8, W/8]
-    bool.  Luma is filtered per candidate off one tap extraction; chroma
-    once with the chosen per-SB indices (as the reference package)."""
+    planes / srcs: (y, u, v) int32 [..., H, W] / [..., H/2, W/2]; skip8
+    [..., H/8, W/8] bool; any leading frame dims, each frame searched on
+    its own.  Luma is filtered per candidate off one tap extraction;
+    chroma once with the chosen per-SB indices (as the reference
+    package)."""
     y, u, v = planes
-    H, W = y.shape
+    *lead, H, W = y.shape
     dev = y.device
     nsb_h, nsb_w = -(-H // 64), -(-W // 64)
 
     def sb_sse(a, b):
         d = (a - b) ** 2
-        full = torch.zeros((nsb_h * 64, nsb_w * 64), dtype=d.dtype,
+        full = torch.zeros((*lead, nsb_h * 64, nsb_w * 64), dtype=d.dtype,
                            device=dev)
-        full[:H, :W] = d
-        return full.reshape(nsb_h, 64, nsb_w, 64).sum((1, 3),
-                                                       dtype=torch.int32)
+        full[..., :H, :W] = d
+        return full.reshape(*lead, nsb_h, 64, nsb_w, 64).sum(
+            (-3, -1), dtype=torch.int32)
 
     cs = coeff_shift
     dirs, var = find_dir_grid(y, cs)
     h8, w8 = H // 8, W // 8
     pris, secs = [], []
     for i in range(1, len(Y_STRENGTHS)):
-        idx = torch.full((nsb_h, nsb_w), i, dtype=torch.int32, device=dev)
+        idx = torch.full((*lead, nsb_h, nsb_w), i, dtype=torch.int32,
+                         device=dev)
         pri, sec = _unit_strengths(idx, skip8, Y_STRENGTHS, h8, w8, 8, cs)
         pris.append(adjust_strength(pri, var))
         secs.append(sec)
@@ -298,10 +306,10 @@ def cdef_search_and_apply(planes, srcs, skip8, damping: int,
                                tap_sel, damping + cs, y)
         lumas.append(fy)
         costs.append(sb_sse(fy, srcs[0]))
-    cost = torch.stack(costs, dim=-1)            # [nsb_h, nsb_w, 4]
+    cost = torch.stack(costs, dim=-1)          # [..., nsb_h, nsb_w, 4]
     idx_sb = torch.argmin(cost, dim=-1).to(torch.int32)
 
-    m = _up(idx_sb, 64)[:H, :W]
+    m = _up(idx_sb, 64)[..., :H, :W]
     out_y = lumas[0]
     for i in range(1, len(lumas)):
         out_y = torch.where(m == i, lumas[i], out_y)

@@ -14,6 +14,9 @@ Simplifications matching this encoder's streams: tx size == prediction
 block size (every tx edge is a block edge, so edges always filter when
 the level is nonzero), no delta LF / segments / ref deltas (uniform
 level per plane+direction), sharpness 0.
+
+Planes may carry leading frame dims ([..., H, W]; a batched step
+filters its S frames at once); size maps are [..., H, W] or [H, W].
 """
 
 from __future__ import annotations
@@ -183,18 +186,18 @@ def deblock_plane_vertical(plane, sizes_px, level: int, is_luma: bool,
                            sharpness: int = 0, bd: int = 8):
     """Filter all vertical edges of one plane.
 
-    plane:    [H, W] int32
-    sizes_px: [H, W] int32 tx/block size (px) of the block covering each
-              pixel (uniform within each block).  level <= 0 disables
-              filtering.
+    plane:    [..., H, W] int32
+    sizes_px: [..., H, W] or [H, W] int32 tx/block size (px) of the
+              block covering each pixel (uniform within each block).
+              level <= 0 disables filtering.
     """
     if level <= 0:
         return plane
-    H, W = plane.shape
+    *lead, H, W = plane.shape
     dev = plane.device
     blimit, limit, thresh = limits_for_level(level, sharpness)
-    out = torch.cat([plane[:, :1].expand(H, 8), plane,
-                     plane[:, -1:].expand(H, 8)], dim=1)
+    out = torch.cat([plane[..., :1].expand(*lead, H, 8), plane,
+                     plane[..., -1:].expand(*lead, H, 8)], dim=-1)
     # residue classes: candidate columns 16 apart never share a strip
     for cls in range(4):
         xs = np.arange(4 + cls * 4, W, 16)
@@ -203,14 +206,15 @@ def deblock_plane_vertical(plane, sizes_px, level: int, is_luma: bool,
         idx = torch.as_tensor(
             xs[:, None] + np.arange(-7, 7)[None, :] + 8, device=dev)
         xs_t = torch.as_tensor(xs, device=dev)
-        strips = out[:, idx]                      # [H, n, 14]
-        sz_r = sizes_px[:, xs_t]                  # [H, n]
-        sz_l = sizes_px[:, xs_t - 1]
+        strips = out[..., idx]                    # [..., H, n, 14]
+        sz_r = sizes_px[..., xs_t]                # [..., H, n]
+        sz_l = sizes_px[..., xs_t - 1]
         exists = (xs_t[None, :] % sz_r) == 0
         flen = torch.where(exists,
                            _flen_for(torch.minimum(sz_l, sz_r), is_luma), 0)
-        out[:, idx] = _filter_strip(strips, flen, blimit, limit, thresh, bd)
-    return out[:, 8 : 8 + W]
+        out[..., idx] = _filter_strip(strips, flen, blimit, limit, thresh,
+                                      bd)
+    return out[..., 8 : 8 + W]
 
 
 def deblock_plane(plane, sizes_px, level_v: int, level_h: int,
@@ -223,8 +227,9 @@ def deblock_plane(plane, sizes_px, level_v: int, level_h: int,
     edges; defaults to sizes_px for square-only streams)."""
     if sizes_px_h is None:
         sizes_px_h = sizes_px
+    t = lambda a: a.transpose(-1, -2)
     p = deblock_plane_vertical(plane, sizes_px, level_v, is_luma,
                                sharpness, bd)
-    p = deblock_plane_vertical(p.T.contiguous(), sizes_px_h.T, level_h,
+    p = deblock_plane_vertical(t(p).contiguous(), t(sizes_px_h), level_h,
                                is_luma, sharpness, bd)
-    return p.T.contiguous()
+    return t(p).contiguous()

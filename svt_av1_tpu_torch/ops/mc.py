@@ -60,11 +60,12 @@ def pad_for_filter(plane, pad: int):
 
 
 def edge_pad(plane, top: int, bottom: int, left: int, right: int):
-    """Edge-replicate pad of a 2-D tensor (np.pad mode="edge")."""
-    h, w = plane.shape
+    """Edge-replicate pad of the last two dims (np.pad mode="edge"); any
+    leading dims (a batch of frames) pass through."""
+    h, w = plane.shape[-2:]
     rows = torch.arange(-top, h + bottom, device=plane.device).clamp(0, h - 1)
     cols = torch.arange(-left, w + right, device=plane.device).clamp(0, w - 1)
-    return plane[rows[:, None], cols[None, :]]
+    return plane[..., rows[:, None], cols[None, :]]
 
 
 def jnt_round_offset(bd: int = 8) -> int:

@@ -10,6 +10,12 @@ exist on CUDA).
 
 SAD tie-breaking follows raster order over (dy, dx), matching a
 'first-best-wins' scan (``torch.argmin`` returns the first minimum).
+
+The functions of the P step's path (``hme_centers``, ``warp_by_centers``,
+``sad_lattice_multisize``, ``select_from_lattice``,
+``median3_mv_field``) take planes [..., H, W] and fields [..., h, w, 2]
+with any leading frame dims: a batched step's S frames run as one, and
+every search and argmin stays per frame.
 """
 
 from __future__ import annotations
@@ -41,12 +47,13 @@ def _blocksum(d, bs: int):
 
 
 def _offset_sads(src, ref_pad, n: int, bs: int):
-    """[n*n, H/bs, W/bs] block SADs of src against every (dy, dx) window
-    of ref_pad (raster offset order)."""
-    h, w = src.shape
+    """[n*n, ..., H/bs, W/bs] block SADs of src [..., H, W] against every
+    (dy, dx) window of ref_pad (raster offset order, the offset axis
+    first)."""
+    h, w = src.shape[-2:]
     out = []
     for dy in range(n):
-        wins = torch.stack([ref_pad[dy: dy + h, dx: dx + w]
+        wins = torch.stack([ref_pad[..., dy: dy + h, dx: dx + w]
                             for dx in range(n)])
         out.append(_blocksum((src[None] - wins).abs(), bs))
     return torch.cat(out)
@@ -109,10 +116,10 @@ def hme_centers(src, ref, search_reach: int = 12):
     """Hierarchical ME level 0: quarter-res full search -> per-32x32-tile
     full-pel center MVs (ref HmeLevel0, EbMotionEstimation.c:5689).
 
-    src/ref: [H, W] int32, H, W multiples of 32.  Returns centers
-    [H/32, W/32, 2] full-pel, clamped to +-search_reach."""
-    sq = src[::4, ::4].to(torch.int32)
-    rq = ref[::4, ::4].to(torch.int32)
+    src/ref: [..., H, W] int32, H, W multiples of 32.  Returns centers
+    [..., H/32, W/32, 2] full-pel, clamped to +-search_reach."""
+    sq = src[..., ::4, ::4].to(torch.int32)
+    rq = ref[..., ::4, ::4].to(torch.int32)
     rq_ = (search_reach + 3) // 4 + 1
     n = 2 * rq_ + 1
     rq_pad = edge_pad(rq, rq_, rq_, rq_, rq_)
@@ -123,26 +130,28 @@ def hme_centers(src, ref, search_reach: int = 12):
 
 def warp_by_centers(ref_pad, centers, tile: int, pad: int):
     """Tile-gather a center-compensated reference plane (one
-    [tile, tile] tile per 32x32 grid cell; the CUDA tile gather)."""
-    th, tw = centers.shape[:2]
+    [tile, tile] tile per 32x32 grid cell; the CUDA tile gather, one
+    launch for a stack of frames [S, Hp, Wp] with centers [S, th, tw,
+    2])."""
+    th, tw = centers.shape[-3:-1]
+    lead = centers.shape[:-3]
     dev = ref_pad.device
     cen = centers.to(torch.int32)
     base_r = (torch.arange(th, dtype=torch.int32, device=dev)[:, None]
-              * tile + pad + cen[..., 0]).reshape(-1)
+              * tile + pad + cen[..., 0]).reshape(*lead, -1)
     base_c = (torch.arange(tw, dtype=torch.int32, device=dev)[None, :]
-              * tile + pad + cen[..., 1]).reshape(-1)
+              * tile + pad + cen[..., 1]).reshape(*lead, -1)
     tiles = G.gather_tiles(ref_pad, base_r, base_c, nbh=th, nbw=tw,
                            stride=tile, band_off=0,
                            band_h=2 * pad + tile, th=tile, tw=tile)
-    return (tiles.reshape(th, tw, tile, tile)
-            .permute(0, 2, 1, 3).reshape(th * tile, tw * tile))
+    return (tiles.reshape(*lead, th, tw, tile, tile).transpose(-3, -2)
+            .reshape(*lead, th * tile, tw * tile))
 
 
 def sad_lattice_multisize(src, warped, r2: int, bd: int = 8):
     """One +-r2 full-pel sweep on the center-warped reference, returning
     the FULL per-offset SAD lattice {bs: [(2r2+1)^2, H//bs, W//bs]}
     (offset axis major; the 16/32 levels are 2x2 sums of the 8 level)."""
-    h, w = src.shape
     n = 2 * r2 + 1
     wpad = edge_pad(warped.to(torch.int32), r2, r2, r2, r2)
     lat8 = _offset_sads(src.to(torch.int32), wpad, n, 8)
@@ -157,8 +166,9 @@ def _offset_table(r2: int, device):
     return torch.stack([k // n - r2, k % n - r2], -1).to(torch.int32)
 
 
-def _up(a, k: int):
-    return a.repeat_interleave(k, 0).repeat_interleave(k, 1)
+def _up_field(a, k: int):
+    """[..., h, w, 2] -> [..., h*k, w*k, 2] (each vector repeated)."""
+    return a.repeat_interleave(k, -3).repeat_interleave(k, -2)
 
 
 def select_from_lattice(lat, centers, tile: int, r2: int,
@@ -167,16 +177,17 @@ def select_from_lattice(lat, centers, tile: int, r2: int,
     returns {bs: (mv_fp, cost)}.  The winner's (dy, dx) is read from the
     offset table by index."""
     dyx = _offset_table(r2, centers.device)                  # [n*n, 2]
+    dyx = dyx.reshape(dyx.shape[0], *(1,) * (centers.dim() - 1), 2)
     out = {}
     for bs in (8, 16, 32):
-        cen = _up(centers, tile // bs)
-        cost = lat[bs]                                       # [n*n, h, w]
+        cen = _up_field(centers, tile // bs)
+        cost = lat[bs]                                  # [n*n, ..., h, w]
         if lam is not None:
-            mv8 = (cen[None] + dyx[:, None, None, :]
+            mv8 = (cen[None] + dyx
                    - (priors[bs][None] if priors is not None else 0)) * 8
             cost = cost + ((lam * mv_rate_bits(mv8)) >> 4)
-        kbest = torch.argmin(cost, 0)                        # [h, w]
-        out[bs] = (cen + dyx[kbest], cost.min(0).values)
+        kbest = torch.argmin(cost, 0)                   # [..., h, w]
+        out[bs] = (cen + dyx.reshape(-1, 2)[kbest], cost.min(0).values)
     return out
 
 
@@ -193,13 +204,13 @@ def median3_mv_field(mv):
     """Component-wise median of (left, up, up-right) neighbor MVs — a
     bulk-parallel approximation of the entropy coder's ref-MV-stack
     predictor (the reference's spatial MVP)."""
-    left = torch.roll(mv, 1, dims=1)
-    left[:, 0] = 0
-    up = torch.roll(mv, 1, dims=0)
-    up[0, :] = 0
-    upr = torch.roll(torch.roll(mv, 1, dims=0), -1, dims=1)
-    upr[0, :] = 0
-    upr[:, -1] = 0
+    left = torch.roll(mv, 1, dims=-2)
+    left[..., :, 0, :] = 0
+    up = torch.roll(mv, 1, dims=-3)
+    up[..., 0, :, :] = 0
+    upr = torch.roll(torch.roll(mv, 1, dims=-3), -1, dims=-2)
+    upr[..., 0, :, :] = 0
+    upr[..., :, -1, :] = 0
     return left + up + upr - torch.minimum(torch.minimum(left, up), upr) \
         - torch.maximum(torch.maximum(left, up), upr)
 

@@ -27,8 +27,12 @@ Dataflow per frame:
   (C++ coder, or pipeline.tile for restored frames)  ->  OBU
   packetization
 
-The encoder is synchronous: IPPP, low-delay-B and all-intra frames come
-out as they are sent (or, with a look-ahead window, as they leave it).
+The encoder is synchronous: IPPP and low-delay-B frames come out as
+they are sent (or, with a look-ahead window, as they leave it).
+All-intra frames gather in an inbox of ``device_batch`` frames, which
+one batched device step codes (the wavefront and the in-loop filters
+with a leading frame axis) and the host entropy-codes on a thread pool;
+``get_packet`` flushes a partial batch.
 Hierarchical B buffers the frames of a mini-GOP until it is full (or
 until ``flush()`` / ``send_picture(None)`` codes the truncated span),
 then codes it in the reference package's decode order: coded
@@ -43,6 +47,7 @@ packs) is not needed here: the outputs come back as plain host arrays.
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
 import numpy as np
@@ -141,6 +146,10 @@ class Encoder:
                          and config.pred_structure == 0)
         self._gm_prev_src = None
         self._send_idx = 0
+        # all-intra: frames awaiting the batched device step, and the
+        # count of frames it coded (their pts)
+        self._inbox: list[Frame] = []
+        self._frame_idx = 0
         self._packets: list[Packet] = []
         self._ref_dev = None       # device recon planes of the last frame
         self._qp_queue: list = []  # push_qp overrides, in coding order
@@ -216,13 +225,16 @@ class Encoder:
         """Snapshot the stream state.  Take it with every packet drained
         (and a hier-B mini-GOP flushed); a resume restarts with a
         keyframe, so a mid-GOP resume point stays decodable."""
-        if self._packets:
+        if self._packets or self._inbox:
             raise RuntimeError("drain packets before checkpointing")
         if self._hier and self._buf:
             raise RuntimeError("flush the mini-GOP first")
         # frame_idx: the reference's count of coded frames, which equals
-        # send_idx in every structure the port runs
-        return {"send_idx": self._send_idx, "frame_idx": self._send_idx,
+        # send_idx in every inter structure the port runs (all-intra
+        # frames are counted by the batch path, which leaves send_idx)
+        frame_idx = (self._frame_idx if self.cfg.intra_only
+                     else self._send_idx)
+        return {"send_idx": self._send_idx, "frame_idx": frame_idx,
                 "scd_avg": self._scd_avg}
 
     def restore(self, st: dict) -> None:
@@ -231,6 +243,7 @@ class Encoder:
         the IPPP and hier-B references are dropped (the next frame is a
         keyframe), the low-delay-B ones are not."""
         self._send_idx = st["send_idx"]
+        self._frame_idx = st["frame_idx"]
         if st.get("scd_avg") is not None:
             self._scd_avg = st["scd_avg"]
         self._scd_prev = None
@@ -258,7 +271,11 @@ class Encoder:
         self._send_inner(frame)
 
     def _send_inner(self, frame: Frame) -> None:
-        if self._hier:
+        if self.cfg.intra_only:
+            self._inbox.append(frame)
+            if len(self._inbox) >= max(1, self.cfg.device_batch):
+                self._dispatch_inbox()
+        elif self._hier:
             self._hier_send(frame)
         elif self._la is not None:
             for f, q_off in self._la.push(frame):
@@ -472,17 +489,21 @@ class Encoder:
             a = a.astype(np.int16)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _pixels_to_dev(self, plane: np.ndarray, h: int, w: int):
-        """A source plane in the stream's pixel dtype, edge-padded to
-        h x w, on the device."""
-        return self._to_dev(IE.pad_plane(plane.astype(self._px), h, w))
+    def _upload_stack(self, frames, h: int, w: int):
+        """The frames' planes in the stream's pixel dtype, edge-padded to
+        h x w luma, stacked [S, ...] on the device."""
+        def stack(get, hh, ww):
+            return self._to_dev(np.stack([
+                IE.pad_plane(get(f).astype(self._px), hh, ww)
+                for f in frames]))
+        return (stack(lambda f: f.y, h, w),
+                stack(lambda f: f.u, h // 2, w // 2),
+                stack(lambda f: f.v, h // 2, w // 2))
 
     def _upload_src(self, frame: Frame):
         """The frame's planes edge-padded to the 64-padded geometry."""
         _, _, ph64, pw64 = self._geometry
-        return (self._pixels_to_dev(frame.y, ph64, pw64),
-                self._pixels_to_dev(frame.u, ph64 // 2, pw64 // 2),
-                self._pixels_to_dev(frame.v, ph64 // 2, pw64 // 2))
+        return tuple(p[0] for p in self._upload_stack([frame], ph64, pw64))
 
     def _as_ref_planes(self, y, u, v):
         """Edge-pad recon planes to the 64-padded inter geometry (the
@@ -495,9 +516,9 @@ class Encoder:
     def _recon_as_ref(self, out):
         """A P / B step's recon planes (outputs 5-7) as a reference."""
         ph, pw, _, _ = self._geometry
-        return self._as_ref_planes(out[5][:ph, :pw],
-                                   out[6][: ph // 2, : pw // 2],
-                                   out[7][: ph // 2, : pw // 2])
+        return self._as_ref_planes(out[5][..., :ph, :pw],
+                                   out[6][..., : ph // 2, : pw // 2],
+                                   out[7][..., : ph // 2, : pw // 2])
 
     def _inter_refs(self, frame: Frame, out):
         """A P / B step's outputs -> (outputs without the deblocked
@@ -568,16 +589,49 @@ class Encoder:
         pkt.pts = pkt.display_idx = d
         self._packets.append(pkt)
 
+    def _dispatch_inbox(self) -> None:
+        """All-intra: code the inbox's frames as one batch — one q (the
+        next push_qp override or the configured qp; no AQ offset, as the
+        reference's batched path), the 8x8 wavefront at every preset and
+        the in-loop filters with a leading frame axis — then entropy-code
+        the frames on a thread pool (the C++ coder releases the GIL)."""
+        if not self._inbox:
+            return
+        frames, self._inbox = self._inbox, []
+        qindex = self._frame_qindex(True)
+        base = self._frame_idx
+        self._frame_idx += len(frames)
+        cfg = self.cfg
+        filters = (cfg.enable_deblocking or cfg.enable_cdef
+                   or cfg.enable_restoration)
+        postproc = filters and (self._need_recon() or cfg.enable_cdef
+                                or cfg.enable_restoration)
+        devs, _ = self._intra_batch(frames, qindex, part16=False,
+                                    postproc=postproc)
+
+        def code(i):
+            dev, deb = devs[i]
+            lr = host = None
+            if deb is not None:
+                lr, host = self._lr_host(frames[i], deb[3:], deb[:3])
+            pkt = self._make_packet(frames[i], dev, qindex, 0, lr, host)
+            pkt.pts = base + i
+            return pkt
+
+        if len(frames) > 1:
+            with ThreadPoolExecutor(max_workers=min(8, len(frames))) as ex:
+                self._packets.extend(ex.map(code, range(len(frames))))
+        else:
+            self._packets.append(code(0))
+
     def _dispatch_one(self, frame: Frame, q_off: int = 0) -> None:
-        """IPPP and all-intra: keyframes (period or scene cut) via the
-        wavefront intra path, P frames via the bulk-parallel inter path;
-        recon planes stay on the device between frames."""
+        """IPPP: keyframes (period or scene cut) via the wavefront intra
+        path, P frames via the bulk-parallel inter path; recon planes
+        stay on the device between frames."""
         idx = self._send_idx
         key = self._is_key(idx) or self._scene_cut(frame)
         qindex = self._frame_qindex(key)
-        if not self.cfg.intra_only:
-            # the reference's all-intra (batched) path has no AQ offset
-            qindex = max(1, min(255, qindex + self._aq_offset(frame)))
+        qindex = max(1, min(255, qindex + self._aq_offset(frame)))
         if not key:
             qindex = max(1, min(255, qindex + q_off))
         self._send_idx += 1
@@ -616,44 +670,59 @@ class Encoder:
             arrs = [a.cpu().numpy() for a in out]
             pkt = self._make_inter_packet(frame, arrs, qindex, gmv, meta)
         pkt.pts = idx
-        if self.cfg.enable_restoration and not self.cfg.intra_only:
+        if self.cfg.enable_restoration:
             # the reference's restored IPPP frames carry their display
             # index (its restoration meta sets it)
             pkt.display_idx = idx
         self._packets.append(pkt)
 
     def _intra_dispatch(self, frame: Frame, qindex: int):
-        """Keyframe: wavefront encode + in-loop filters on the device (the
-        RD presets' wavefront picks 16x16 or 8x8 leaves per 16x16 unit).
+        """Keyframe of an inter stream: wavefront encode + in-loop filters
+        on the device (the RD presets' wavefront picks 16x16 or 8x8
+        leaves per 16x16 unit; all-intra streams keep the 8x8 wavefront
+        at every preset, the reference's batched all-intra path).
         Returns (host dict for the packet writer, reference planes, the
         deblocked pre-CDEF planes when restoration is on, else None)."""
+        cfg = self.cfg
+        res, planes = self._intra_batch(
+            [frame], qindex, part16=self._rdo,
+            postproc=(cfg.enable_deblocking or cfg.enable_cdef
+                      or cfg.enable_restoration))
+        dev, deb = res[0]
+        return (dev, self._as_ref_planes(*(p[0] for p in planes)),
+                None if deb is None else deb[:3])
+
+    def _intra_batch(self, frames, qindex: int, part16: bool,
+                     postproc: bool):
+        """Intra-code S frames in one wavefront with a leading frame axis
+        (part16: the RD presets' 16x16 wavefront, one frame) and their
+        in-loop filters (postproc).  Returns (per frame (host dict for
+        the packet writer, with restoration the deblocked pre-CDEF planes
+        then the frame's recon planes, else None), the frames' recon
+        planes stacked [S, ...] on the device)."""
         ph, pw, _, _ = self._geometry
-        src = (self._pixels_to_dev(frame.y, ph, pw),
-               self._pixels_to_dev(frame.u, ph // 2, pw // 2),
-               self._pixels_to_dev(frame.v, ph // 2, pw // 2))
+        src = self._upload_stack(frames, ph, pw)
         blocks = (IE.block_planes(src[0], 8), IE.block_planes(src[1], 4),
                   IE.block_planes(src[2], 4))
-        # the RD presets' 16x16 partition search runs on the keyframes of
-        # inter streams; all-intra streams keep the 8x8 wavefront at every
-        # preset (the reference's batched all-intra path)
-        part16 = self._rdo and not self.cfg.intra_only
-        step = IE.frame_step16 if part16 else IE.frame_step
-        out = step(*blocks, qindex, self.cfg.bit_depth)
+        if part16:
+            out = tuple(o[None] for o in IE.frame_step16(
+                *(b[0] for b in blocks), qindex, self.cfg.bit_depth))
+        else:
+            out = IE.frame_step(*blocks, qindex, self.cfg.bit_depth)
         planes = tuple(IE.unblock_planes(out[i]) for i in (4, 5, 6))
         cdef_idx = deb = None
-        if (self.cfg.enable_deblocking or self.cfg.enable_cdef
-                or self.cfg.enable_restoration):
+        if postproc:
             # per-cell coded-skip map (CDEF skips skip blocks, spec 7.15);
             # a 16x16 leaf's four cells share its skip
             zero = lambda a: (a == 0).all(-1).all(-1)
             sk = zero(out[1]) & zero(out[2]) & zero(out[3])
             sizes8 = None
             if part16:
-                sizes8 = out[10]
+                sizes8 = out[10][0]
                 nbh, nbw = sizes8.shape
-                sk16 = PE._up(zero(out[11]) & zero(out[12]) & zero(out[13]),
-                              2)[:nbh, :nbw]
-                sk = torch.where(sizes8 == 16, sk16, sk)
+                sk16 = PE._up(zero(out[11][0]) & zero(out[12][0])
+                              & zero(out[13][0]), 2)[:nbh, :nbw]
+                sk = torch.where(sizes8 == 16, sk16, sk[0])[None]
             planes, cdef_idx, deb = self._intra_postproc(planes, src, sk,
                                                          qindex, sizes8)
         names = ["modes", "levels_y", "levels_u", "levels_v"]
@@ -662,12 +731,19 @@ class Encoder:
                       "levels16_u", "levels16_v"]
         host = [out[i].cpu().numpy() for i in range(4)] + \
             [a.cpu().numpy() for a in out[7:]]
-        dev = dict(zip(names, host))
-        dev["cdef_idx"] = None if cdef_idx is None else cdef_idx.cpu().numpy()
-        if self._need_recon():
-            dev["recon_y"], dev["recon_u"], dev["recon_v"] = (
-                p.cpu().numpy() for p in planes)
-        return dev, self._as_ref_planes(*planes), deb
+        cdef_h = None if cdef_idx is None else cdef_idx.cpu().numpy()
+        rec_h = ([p.cpu().numpy() for p in planes] if self._need_recon()
+                 else None)
+        res = []
+        for i in range(len(frames)):
+            dev = {k: a[i] for k, a in zip(names, host)}
+            dev["cdef_idx"] = None if cdef_h is None else cdef_h[i]
+            if rec_h is not None:
+                dev["recon_y"], dev["recon_u"], dev["recon_v"] = (
+                    p[i] for p in rec_h)
+            res.append((dev, None if deb is None else
+                        tuple(p[i] for p in deb + planes)))
+        return res, planes
 
     def _intra_postproc(self, planes, srcs, sk, qindex: int, sizes8=None):
         """Keyframe in-loop filters: deblock on the tx grid (8x8 / 4x4
@@ -676,6 +752,7 @@ class Encoder:
         deblocked planes when restoration is on, else None)."""
         bd = self.cfg.bit_depth
         ph, pw, _, _ = self._geometry
+        lead = planes[0].shape[:-2]
         ly, _, lu, lv = self._lf_levels(qindex, True)
         i32 = lambda a: a.to(torch.int32)
         if sizes8 is None:
@@ -692,8 +769,8 @@ class Encoder:
         px = lambda a: a.to(MC.pixel_dtype(bd))
         deb = ((px(y), px(u), px(v)) if self.cfg.enable_restoration
                else None)
-        idx_sb = torch.zeros((-(-ph // 64), -(-pw // 64)), dtype=torch.uint8,
-                             device=self.device)
+        idx_sb = torch.zeros((*lead, -(-ph // 64), -(-pw // 64)),
+                             dtype=torch.uint8, device=self.device)
         if self.cfg.enable_cdef:
             (y, u, v), idx_sb = CDEF.cdef_search_and_apply(
                 (y, u, v), tuple(i32(s) for s in srcs), sk,
@@ -709,15 +786,20 @@ class Encoder:
         restored planes as device reference planes).  Restoration's
         output is the reference buffer's content, so the next frame
         cannot start before it lands."""
+        lr, pl = self._lr_host(frame, rec, deb)
+        refs = self._as_ref_planes(*(self._to_dev(p.astype(self._px))
+                                     for p in pl))
+        return lr, pl, refs
+
+    def _lr_host(self, frame: Frame, rec, deb):
+        """The host half of _lr_from_dev: (lr list or None, restored host
+        planes (int32))."""
         ph, pw, _, _ = self._geometry
         host = lambda a, sh: np.asarray(
             a[: ph >> sh, : pw >> sh].cpu().numpy(), np.int32)
         pl = [host(rec[0], 0), host(rec[1], 1), host(rec[2], 1)]
         dpl = [host(deb[0], 0), host(deb[1], 1), host(deb[2], 1)]
-        lr = self._lr_process(frame, pl, dpl)
-        refs = self._as_ref_planes(*(self._to_dev(p.astype(self._px))
-                                     for p in pl))
-        return lr, pl, refs
+        return self._lr_process(frame, pl, dpl), pl
 
     def _lr_process(self, frame: Frame, planes, deb):
         """Per-plane loop restoration: Wiener AND self-guided searches
@@ -972,12 +1054,19 @@ class Encoder:
         ly, lu, lv = DB.pick_filter_levels(qindex, is_key)
         return (ly, ly, lu, lv)
 
+    def _refill(self) -> None:
+        """Flush a partial all-intra batch when no packet is ready."""
+        if not self._packets and self._inbox:
+            self._dispatch_inbox()
+
     # -- ref eb_svt_get_packet ----------------------------------------------------
     def get_packet(self) -> Optional[Packet]:
+        self._refill()
         return self._packets.pop(0) if self._packets else None
 
     # -- ref eb_svt_get_recon ------------------------------------------------------
     def get_recon(self) -> Optional[Frame]:
+        self._refill()
         return self._packets[0].recon if self._packets else None
 
     def encode_all(self, frames) -> Iterator[Packet]:

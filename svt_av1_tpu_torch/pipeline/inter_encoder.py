@@ -34,6 +34,12 @@ build evaluates it, pipeline/rdo.py) -> per-cell selection -> filters.
 Every reference-patch read goes through ops.gather (the CUDA tile
 gather on the card).  The reference package's one-hot integer matmuls
 (tap selection, offset resolution) are indexing here.
+
+The step carries a leading frame axis: given planes [S, H, W] it codes
+S frames (the reference package's ``jax.vmap`` of the step over the
+streams of pipeline/multistream.py) in the launches of one, every
+search, argmin, merge and filter per frame; given [H, W] planes it is
+the one-frame step (S = 1 inside).
 """
 
 from __future__ import annotations
@@ -88,26 +94,36 @@ def inter_layout(nrefs: int, compound: bool, txs: bool, lv8: bool,
 
 
 def _block(plane, bs: int):
-    h, w = plane.shape
-    return plane.reshape(h // bs, bs, w // bs, bs).transpose(1, 2)
+    """[..., H, W] -> [..., H/bs, W/bs, bs, bs]."""
+    *lead, h, w = plane.shape
+    return plane.reshape(*lead, h // bs, bs, w // bs, bs).transpose(-3, -2)
 
 
 def _unblock(blocks):
-    nbh, nbw, bh, bw = blocks.shape
-    return blocks.transpose(1, 2).reshape(nbh * bh, nbw * bw)
+    """[..., nbh, nbw, bh, bw] -> [..., nbh*bh, nbw*bw]."""
+    *lead, nbh, nbw, bh, bw = blocks.shape
+    return blocks.transpose(-3, -2).reshape(*lead, nbh * bh, nbw * bw)
 
 
-def _up(a, k: int):
-    return a if k == 1 else a.repeat_interleave(k, 0).repeat_interleave(k, 1)
+def _up(a, k: int, dim: int = 0):
+    """Repeat dims (dim, dim + 1) k times each: a [h, w] map (dim 0), or
+    a [S, h, w, ...] map or vector field of the batched step (dim 1)."""
+    if k == 1:
+        return a
+    return a.repeat_interleave(k, dim).repeat_interleave(k, dim + 1)
+
+
+def _up1(a, k: int):
+    return _up(a, k, 1)
 
 
 def _encode_plane(src_blocks, pred_blocks, qindex, tx_size: int,
                   bd: int = 8, tx_type: int = T.DCT_DCT):
-    """[nbh, nbw, bh, bw] source + prediction -> (levels, recon) with
-    the f32 forward transform and the exact inverse.  qindex: a Python
-    int, or an [nbh, nbw] tensor of per-block qindex values (per-SB
-    adaptive quantization)."""
-    nbh, nbw, bh, bw = src_blocks.shape
+    """[..., nbh, nbw, bh, bw] source + prediction -> (levels, recon)
+    with the f32 forward transform and the exact inverse.  qindex: a
+    Python int, or an [..., nbh, nbw] tensor of per-block qindex values
+    (per-SB adaptive quantization)."""
+    bh, bw = src_blocks.shape[-2:]
     if isinstance(qindex, torch.Tensor):
         qindex = qindex.reshape(-1)
     resid = (src_blocks - pred_blocks).reshape(-1, bh, bw)
@@ -123,9 +139,9 @@ def _encode_plane(src_blocks, pred_blocks, qindex, tx_size: int,
         levels = torch.where(keep, levels, 0)
     dq = Q.dequantize_batch(levels, qindex, tx_size, bd)
     rec = T.inv_txfm2d_batch(dq, tx_size, tx_type, bd)
-    recon = torch.clamp(pred_blocks + rec.reshape(nbh, nbw, bh, bw), 0,
+    recon = torch.clamp(pred_blocks + rec.reshape(src_blocks.shape), 0,
                         (1 << bd) - 1)
-    return levels.reshape(nbh, nbw, bh, bw), recon
+    return levels.reshape(src_blocks.shape), recon
 
 
 def _phase_grid(patch, bs: int, bd: int, kern):
@@ -191,11 +207,12 @@ def _subpel_refine_dense(src_blocks, ref_pad, mv_fp, bs: int, pad: int,
     phase grid.  Used by the RD presets (ref HalfPelSearch_LCU /
     QuarterPelSearch_LCU, EbMotionEstimation.c:3829/:4746)."""
     kern = _filter_kern(filt)
-    nbh, nbw = mv_fp.shape[:2]
+    grid = mv_fp.shape[:-1]                          # [..., nbh, nbw]
     patch = G.gather_blocks_grid(ref_pad, mv_fp[..., 0], mv_fp[..., 1],
                                  bs, pad, pad - 1, halo=8, off=-4)
-    patch = patch.permute(1, 2, 0).to(torch.int32)   # [ext, ext, N]
-    P = _phase_grid(patch, bs, bd, kern)
+    ext = bs + 8
+    patch = patch.reshape(-1, ext, ext).permute(1, 2, 0).to(torch.int32)
+    P = _phase_grid(patch, bs, bd, kern)             # [ext, ext, N] in
     src = src_blocks.reshape(-1, bs, bs).permute(1, 2, 0).to(torch.int16)
     dev = mv_fp.device
     best_cost = None
@@ -208,7 +225,7 @@ def _subpel_refine_dense(src_blocks, ref_pad, mv_fp, bs: int, pad: int,
             fx = dx >> 3
             pred = P[pyi][pxi][fy + 1: fy + 1 + bs, fx + 1: fx + 1 + bs, :]
             sad = (src - pred).abs().sum((0, 1), dtype=torch.int32
-                                         ).reshape(nbh, nbw)
+                                         ).reshape(grid)
             mv8c = mv_fp * 8 + torch.tensor([dy, dx], dtype=torch.int32,
                                             device=dev)
             cost = sad + ((lam * ME.mv_rate_bits(mv8c - prior8)) >> 4)
@@ -231,18 +248,17 @@ def _interp_patch(patch, ph_r, ph_c, bs: int, bd: int, filt: int = 0,
                   jnt: bool = False, both: bool = False):
     """Per-block subpel interpolation on gathered patches.
 
-    patch: [N, bs+7, bs+7] full-pel windows (top-left at position - 3,
-    the 8-tap halo); ph_r/ph_c: [nbh, nbw] phase16 indices.  The regular
-    output reproduces the reference's copy / x-only / y-only / 2-D
-    rounding, selected per block; ``jnt`` returns instead the
-    CONV_BUF-domain av1_jnt_convolve_2d output (one formula for every
-    phase), and ``both`` returns (regular, CONV_BUF) from one shared
-    convolution.  Each is [nbh, nbw, bs, bs] int32."""
+    patch: [..., N, bs+7, bs+7] full-pel windows (top-left at position
+    - 3, the 8-tap halo); ph_r/ph_c: [..., nbh, nbw] phase16 indices.
+    The regular output reproduces the reference's copy / x-only /
+    y-only / 2-D rounding, selected per block; ``jnt`` returns instead
+    the CONV_BUF-domain av1_jnt_convolve_2d output (one formula for
+    every phase), and ``both`` returns (regular, CONV_BUF) from one
+    shared convolution.  Each is [..., nbh, nbw, bs, bs] int32."""
     table = _filter_table_on(filt, patch.device)         # [16, 8]
-    nbh, nbw = ph_r.shape
     kx = table[ph_c.reshape(-1).long()]                  # [N, 8]
     ky = table[ph_r.reshape(-1).long()]
-    p = patch.permute(1, 2, 0).to(torch.int32)           # [bs+7, bs+7, N]
+    p = patch.reshape(-1, bs + 7, bs + 7).permute(1, 2, 0).to(torch.int32)
     rs = lambda x, n: (x + (1 << (n - 1))) >> n
     hi = (1 << bd) - 1
     offset0 = 1 << (bd + 6)
@@ -262,7 +278,7 @@ def _interp_patch(patch, ph_r, ph_c, bs: int, bd: int, filt: int = 0,
             out = t if out is None else out + t
         return out                                       # [bs, cols, N]
 
-    fin = lambda x: x.permute(2, 0, 1).reshape(nbh, nbw, bs, bs)
+    fin = lambda x: x.permute(2, 0, 1).reshape(*ph_r.shape, bs, bs)
     hc = hconv(p)                                        # [bs+7, bs, N]
     im = rs(hc + offset0, 3)
     twod_acc = vconv(im)
@@ -327,17 +343,21 @@ def _coeff_bits(lv):
 
 
 def _sum4(a):
-    """[2H, 2W] -> [H, W] 2x2 block sum."""
-    return a.reshape(a.shape[0] // 2, 2, a.shape[1] // 2, 2).sum(
-        (1, 3), dtype=a.dtype)
+    """[..., 2H, 2W] -> [..., H, W] 2x2 block sum."""
+    *lead, h, w = a.shape
+    return a.reshape(*lead, h // 2, 2, w // 2, 2).sum((-3, -1),
+                                                      dtype=a.dtype)
 
 
 def _tiles8(x, t: int):
-    """[gh, gw, bh, bw] block grid -> [gh*bh/t, gw*bw/t, t, t] tile grid."""
-    gh, gw, bh, bw = x.shape
+    """[..., gh, gw, bh, bw] block grid -> [..., gh*bh/t, gw*bw/t, t, t]
+    tile grid."""
+    *lead, gh, gw, bh, bw = x.shape
     kh, kw = bh // t, bw // t
-    return (x.reshape(gh, gw, kh, t, kw, t).permute(0, 2, 1, 4, 3, 5)
-            .reshape(gh * kh, gw * kw, t, t))
+    n = len(lead)
+    return (x.reshape(*lead, gh, gw, kh, t, kw, t)
+            .permute(*range(n), n, n + 2, n + 1, n + 4, n + 3, n + 5)
+            .reshape(*lead, gh * kh, gw * kw, t, t))
 
 
 def _inside_masks(ph: int, pw: int, mi_rows: int, mi_cols: int):
@@ -362,7 +382,10 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     """Build the P/B-frame encode step (a plain callable).
 
     Geometry: ph, pw are the 64-padded plane dims; mi_rows/mi_cols the
-    frame's mode-info grid.
+    frame's mode-info grid.  Every plane argument may carry a leading
+    frame axis ([S, ph, pw], qmap [S, ...]): the step then codes S frames
+    with a shared qindex and filter levels (and global translation), and
+    each output gains the same leading axis.
     step(sy [ph,pw], su, sv [ph/2,pw/2], ref0_y, ref0_u, ref0_v
          [, ref1_y, ref1_u, ref1_v [, ref2_y, ref2_u, ref2_v]], qindex,
          lf_y, lf_u, lf_v[, gmv][, qmap])
@@ -420,6 +443,18 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         extra = rest[3 * nrefs + 4:]
         gmv = extra[0] if (gm and extra) else None
         qmap = extra[-1] if aq else None
+        if sy.dim() == 3:
+            return batched(sy, su, sv, refs, qindex, lf_y, lf_u, lf_v, gmv,
+                           qmap)
+        one = lambda a: None if a is None else torch.as_tensor(a)[None]
+        out = batched(sy[None], su[None], sv[None],
+                      tuple(r[None] for r in refs), qindex, lf_y, lf_u,
+                      lf_v, gmv, one(qmap))
+        return tuple(o[0] for o in out)
+
+    def batched(sy, su, sv, refs, qindex, lf_y, lf_u, lf_v, gmv, qmap):
+        """The step on [S, ...] planes: S frames, one shared q."""
+        S = sy.shape[0]
         dev = sy.device
         q = int(qindex)
         ac = int(ac_table[q])
@@ -432,7 +467,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         def qq(bs: int):
             """The quantizer of residual coding at leaf size bs: the
             frame q, or with aq the per-SB map expanded to the blocks."""
-            return q if qmap is None else _up(qmap, 64 // bs)
+            return q if qmap is None else _up1(qmap, 64 // bs)
         sy = sy.to(torch.int32)
         su = su.to(torch.int32)
         sv = sv.to(torch.int32)
@@ -456,7 +491,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             p1 = ME.select_from_lattice(lat, centers, 32, r2)
             priors = {bs: ME.median3_mv_field(p1[bs][0]) for bs in SIZES}
             p2 = ME.select_from_lattice(lat, centers, 32, r2, lam, priors)
-            priors[64] = priors[32][::2, ::2]
+            priors[64] = priors[32][:, ::2, ::2]
             if rdo:
                 mv_i, cost_i = {}, {}
                 for bs in SIZES:
@@ -468,10 +503,10 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             mv_i = {bs: p2[bs][0] * 8 for bs in SIZES}   # 1/8-pel units
             cost_i = {bs: p2[bs][1] for bs in SIZES}
             lat64 = _blocksum2(lat[32])
-            cen64 = centers[::2, ::2]
+            cen64 = centers[:, ::2, ::2]
             dyx64 = ME._offset_table(r2, dev)
             c64 = lat64 + ((lam * ME.mv_rate_bits(
-                (cen64[None] + dyx64[:, None, None, :]) * 8
+                (cen64[None] + dyx64[:, None, None, None, :]) * 8
                 - priors[64][None] * 8)) >> 4)
             k64 = torch.argmin(c64, 0)
             mv_i[64] = (cen64 + dyx64[k64]) * 8
@@ -500,7 +535,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             if rdo:
                 # subpel prediction at the global translation per size
                 for bs in SIZES:
-                    mvg = mvg_one.expand(ph // bs, pw // bs, 2)
+                    mvg = mvg_one.expand(S, ph // bs, pw // bs, 2)
                     predg = _mc_patch(padded[0][0], mvg, bs, pad, False, bd,
                                       filt=filt)
                     costg = ((_block(sy, bs) - predg).abs()
@@ -512,11 +547,12 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             else:
                 # the estimator emits FULL-pel global vectors, so one
                 # copy-gather at the 8 level + 2x2 sums score every size
-                full = lambda v: torch.full((nb8h, nb8w), v >> 3,
+                full = lambda v: torch.full((S, nb8h, nb8w), v >> 3,
                                             dtype=torch.int32, device=dev)
                 tiles = G.gather_blocks_grid(padded[0][0], full(g[0]),
                                              full(g[1]), 8, pad, pad - 1)
-                sadg = {8: (_block(sy, 8) - tiles.reshape(nb8h, nb8w, 8, 8)
+                sadg = {8: (_block(sy, 8)
+                            - tiles.reshape(S, nb8h, nb8w, 8, 8)
                             .to(torch.int32)).abs().sum((-1, -2),
                                                         dtype=torch.int32)}
                 for bs in (16, 32, 64):
@@ -553,9 +589,9 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             use64 = (j64 <= j_split64) & ins[64]
 
         # per-8x8-cell leaf-kind map: 0..3 = square 8/16/32/64
-        kind8 = torch.where(_up(use64, 8), 3,
-                            torch.where(_up(use32, 4), 2,
-                                        torch.where(_up(use16, 2), 1, 0)))
+        kind8 = torch.where(_up1(use64, 8), 3,
+                            torch.where(_up1(use32, 4), 2,
+                                        torch.where(_up1(use16, 2), 1, 0)))
         size8 = (8 << kind8).to(torch.uint8)
 
         def kpick(per_kind, dtype):
@@ -569,8 +605,8 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                 out = torch.where(m, v, out)
             return out.to(dtype)
 
-        sq_cells = lambda d: {0: d[8], 1: _up(d[16], 2), 2: _up(d[32], 4),
-                              3: _up(d[64], 8)}
+        sq_cells = lambda d: {0: d[8], 1: _up1(d[16], 2),
+                              2: _up1(d[32], 4), 3: _up1(d[64], 8)}
         ref8 = mv2_sel = None
         if rdo:
             levels, rec_planes = rd["levels"], rd["rec"]
@@ -586,7 +622,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
 
         # --- final recon: per-cell select of the chosen leaf's recon -----
         def select_plane(idx_plane, shift):
-            km = _up(kind8, 8 >> shift)
+            km = _up1(kind8, 8 >> shift)
             out = rec_planes[8][idx_plane]
             for k, bs_ in ((1, 16), (2, 32), (3, 64)):
                 out = torch.where(km == k, rec_planes[bs_][idx_plane], out)
@@ -607,13 +643,13 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
 
         # --- in-loop filters over the mi-grid region (the decoder filters
         # exactly [ph_mi, pw_mi]; the pad margin is edge-replicated) ----
-        crop = lambda p2, sh: p2[: ph_mi >> sh, : pw_mi >> sh]
+        crop = lambda p2, sh: p2[:, : ph_mi >> sh, : pw_mi >> sh]
         cy, cu, cv = crop(rec_y, 0), crop(rec_u, 1), crop(rec_v, 1)
-        sz8 = size8[: ph_mi // 8, : pw_mi // 8].to(torch.int32)
-        idx_sb = torch.zeros((-(-ph_mi // 64), -(-pw_mi // 64)),
+        sz8 = size8[:, : ph_mi // 8, : pw_mi // 8].to(torch.int32)
+        idx_sb = torch.zeros((S, -(-ph_mi // 64), -(-pw_mi // 64)),
                              dtype=torch.uint8, device=dev)
-        upy = _up(sz8, 8)
-        upc = _up(sz8 >> 1, 4)
+        upy = _up1(sz8, 8)
+        upc = _up1(sz8 >> 1, 4)
         cy = DB.deblock_plane(cy, upy, lf_levels[0], lf_levels[1], True,
                               bd=bd)
         cu = DB.deblock_plane(cu, upc, lf_levels[2], lf_levels[2], False,
@@ -630,11 +666,11 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                 z = ((lv3[0] == 0).all(-1).all(-1)
                      & (lv3[1] == 0).all(-1).all(-1)
                      & (lv3[2] == 0).all(-1).all(-1))
-                return _up(z, rep)
+                return _up1(z, rep)
 
             sk = kpick({i: skipmap(levels[bs_], bs_ // 8)
                         for i, bs_ in enumerate(SIZES64)},
-                       torch.bool)[: sz8.shape[0], : sz8.shape[1]]
+                       torch.bool)[:, : sz8.shape[1], : sz8.shape[2]]
             damping = CD.pick_damping(q)
             (cy, cu, cv), idx_sb = CD.cdef_search_and_apply(
                 (cy, cu, cv), (crop(sy, 0), crop(su, 1), crop(sv, 1)), sk,
@@ -643,8 +679,8 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
 
         px = MC.pixel_dtype(bd)
         repad = lambda core, like: MC.edge_pad(
-            core, 0, like.shape[0] - core.shape[0], 0,
-            like.shape[1] - core.shape[1]).to(px)
+            core, 0, like.shape[-2] - core.shape[-2], 0,
+            like.shape[-1] - core.shape[-1]).to(px)
         out = (size8, mv_sel, ly_pack, lu_pack, lv_pack,
                repad(cy, rec_y), repad(cu, rec_u), repad(cv, rec_v), idx_sb)
         if nrefs >= 2:
@@ -692,7 +728,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             best_mv = best_cost = None
             for dr in (0, 1):
                 for dc in (0, 1):
-                    mvc = mv32[dr::2, dc::2]
+                    mvc = mv32[:, dr::2, dc::2]
                     pred = _mc_patch(padded[i][0], mvc, 64, pad, False, bd,
                                      filt=filt)
                     c = ((src_of[64] - pred).abs().sum((-1, -2),
@@ -797,7 +833,8 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         and residual coding at every leaf size.  Returns (mv_sel, ref8,
         mv2_sel, levels, rec) per size."""
         dev = sy.device
-        leaf_cells = lambda d: kpick({ki: _up(d[bs_], bs_ // 8)
+        S = sy.shape[0]
+        leaf_cells = lambda d: kpick({ki: _up1(d[bs_], bs_ // 8)
                                       for ki, bs_ in enumerate(SIZES64)},
                                      d[8].dtype)
         dyx_c = torch.tensor(cand, dtype=torch.int32, device=dev)
@@ -817,18 +854,18 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             patch = G.gather_blocks_grid(padded[i][0], mvc8[..., 0] >> 3,
                                          mvc8[..., 1] >> 3, 8, pad, pad - 1,
                                          halo=8, off=-4)
-            P = _phase_grid(patch.permute(1, 2, 0).to(torch.int32), 8, bd,
-                            kern_c)
+            P = _phase_grid(patch.reshape(-1, 16, 16).permute(1, 2, 0)
+                            .to(torch.int32), 8, bd, kern_c)
             lvl = torch.stack([
                 (src8T - cand_slice(P, ci)).abs().sum((0, 1),
                                                       dtype=torch.int32)
-                .reshape(nb8h, nb8w) for ci in range(len(cand))])
+                .reshape(S, nb8h, nb8w) for ci in range(len(cand))])
             idx_l, cost_l = {}, {}
             for bs in SIZES64:
                 if bs > 8:
                     lvl = _blocksum2(lvl)
                 cl = lvl + ((lam * ME.mv_rate_bits(
-                    per_ref_mv[i][bs][None] + dyx_c[:, None, None, :]
+                    per_ref_mv[i][bs][None] + dyx_c[:, None, None, None, :]
                     - per_ref[i][2][bs][None] * 8)) >> 4)
                 idx_l[bs] = torch.argmin(cl, 0)
                 cost_l[bs] = cl.min(0).values
@@ -854,7 +891,8 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                 p1s = pred_sel(ref_fine[1][2], ref_fine[1][3])
                 avg = (p0s.to(torch.int32) + p1s + 1) >> 1
                 sadc = ((src8T.to(torch.int32) - avg).abs()
-                        .sum((0, 1), dtype=torch.int32).reshape(nb8h, nb8w))
+                        .sum((0, 1), dtype=torch.int32)
+                        .reshape(S, nb8h, nb8w))
             sel_l = {}
             for bs in SIZES64:
                 k = bs // 8
@@ -867,9 +905,9 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                     if bs >= 16:
                         # 8x8 leaves stay single-ref (rarely compound,
                         # the most costly)
-                        r0 = ME.mv_rate_bits(ref_fine[0][0][::k, ::k]
+                        r0 = ME.mv_rate_bits(ref_fine[0][0][:, ::k, ::k]
                                              - per_ref[0][2][bs] * 8)
-                        r1 = ME.mv_rate_bits(ref_fine[1][0][::k, ::k]
+                        r1 = ME.mv_rate_bits(ref_fine[1][0][:, ::k, ::k]
                                              - per_ref[1][2][bs] * 8)
                         cc = sadc + ((lam * (r0 + r1 + COMP_EXTRA_BITS))
                                      >> 4)
@@ -947,10 +985,10 @@ def rd_merge(jcost: dict, lam_rd: float, ins: dict):
 
 
 def _blocksum2(lat):
-    """[n, 2h, 2w] -> [n, h, w] 2x2 sums (lattice levels)."""
-    n, h, w = lat.shape
-    return lat.reshape(n, h // 2, 2, w // 2, 2).sum((2, 4),
-                                                    dtype=torch.int32)
+    """[n, ..., 2h, 2w] -> [n, ..., h, w] 2x2 sums (lattice levels)."""
+    *lead, h, w = lat.shape
+    return lat.reshape(*lead, h // 2, 2, w // 2, 2).sum((-3, -1),
+                                                        dtype=torch.int32)
 
 
 @functools.lru_cache(maxsize=4)

@@ -72,17 +72,25 @@ def _static_maps(nbh: int, nbw: int, device: torch.device):
 
 
 def frame_step(sy, su, sv, qindex: int, bd: int = 8):
-    """Full-frame intra encode of a block grid.
+    """Full-frame intra encode of a block grid, or of a batch of S
+    frames' block grids.
 
     sy [nbh,nbw,8,8], su/sv [nbh,nbw,4,4] source blocks (any integer
-    dtype, on the working device); qindex a Python int.
+    dtype, on the working device), or [S, ...] of each (the reference
+    package's ``jax.vmap`` of the step: each diagonal codes the blocks
+    of all S frames as one batch, so S frames cost the launches of one);
+    qindex a Python int, shared by the batch.
     -> (modes [nbh,nbw] u8, levels_y [nbh,nbw,8,8] i16, levels_u,
         levels_v [nbh,nbw,4,4] i16, recon_y [nbh,nbw,8,8], recon_u,
         recon_v: u8 at 8 bits, i16 at 10 (MC.pixel_dtype)) — the
-        reference's output tuple with dynamic-q dtypes.
+        reference's output tuple with dynamic-q dtypes; each with the
+        leading [S] for a batch.
     """
+    if sy.dim() == 4:
+        return tuple(o[0] for o in frame_step(sy[None], su[None], sv[None],
+                                              qindex, bd))
     dev = sy.device
-    nbh, nbw = sy.shape[:2]
+    S, nbh, nbw = sy.shape[:3]
     cands = tuple(intra.ALL_MODES)
     ar_pad, bl_pad, mode_ids, d203 = _static_maps(nbh, nbw, dev)
     # staircase wavefront d = 2r + c: the above-right neighbor (r-1, c+1)
@@ -92,12 +100,18 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
     sy = sy.to(torch.int32)
     su = su.to(torch.int32)
     sv = sv.to(torch.int32)
-    z = lambda bs: torch.zeros((nbh + 1, nbw + 1, bs, bs), dtype=torch.int32,
-                               device=dev)
+    z = lambda bs: torch.zeros((S, nbh + 1, nbw + 1, bs, bs),
+                               dtype=torch.int32, device=dev)
     ry, ru, rv = z(LUMA_BS), z(CHROMA_BS), z(CHROMA_BS)
     ly, lu, lv = z(LUMA_BS), z(CHROMA_BS), z(CHROMA_BS)
-    modes = torch.zeros((nbh + 1, nbw + 1), dtype=torch.int32, device=dev)
+    modes = torch.zeros((S, nbh + 1, nbw + 1), dtype=torch.int32,
+                        device=dev)
     ar_b = torch.arange(B, device=dev)
+    # the diagonal's lanes of every frame as one batch: [S, B, ...] ->
+    # [S*B, ...], a per-lane mask [B] repeated for each frame
+    flat = lambda a: a.reshape(S * B, *a.shape[2:])
+    lanes = lambda m: m.expand(S, B).reshape(S * B)
+    unflat = lambda a: a.reshape(S, B, *a.shape[1:])
 
     for d in range(ndiag):
         r = max(0, (d - nbw + 2) // 2) + ar_b
@@ -111,19 +125,20 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
         c_lf = torch.where(hl, cs - 1, nbw)
         rc = torch.clamp(rs, max=nbh - 1)   # clamped src gather
         cc = torch.clamp(cs, max=nbw - 1)
+        ha_l, hl_l = lanes(ha), lanes(hl)
 
         # ---- luma: mode decision over all candidates ----
-        above = ry[r_up, cs, LUMA_BS - 1, :]
-        left = ry[rs, c_lf, :, LUMA_BS - 1]
-        topleft = ry[r_up, c_lf, LUMA_BS - 1, LUMA_BS - 1]
+        above = flat(ry[:, r_up, cs, LUMA_BS - 1, :])
+        left = flat(ry[:, rs, c_lf, :, LUMA_BS - 1])
+        topleft = flat(ry[:, r_up, c_lf, LUMA_BS - 1, LUMA_BS - 1])
         ar_avail = ar_pad[rs, cs]
-        bl_avail = bl_pad[rs, cs]
+        bl_avail = lanes(bl_pad[rs, cs])
         c_ar = torch.where(ar_avail, torch.clamp(cs + 1, max=nbw), nbw)
-        above_ext = ry[r_up, c_ar, LUMA_BS - 1, :]
+        above_ext = flat(ry[:, r_up, c_ar, LUMA_BS - 1, :])
         preds = intra.predict_all_modes(
-            above, left, topleft, ha, hl, LUMA_BS, LUMA_BS, bd,
-            modes=cands, above_ext=above_ext, ar_avail=ar_avail)
-        src = sy[rc, cc]
+            above, left, topleft, ha_l, hl_l, LUMA_BS, LUMA_BS, bd,
+            modes=cands, above_ext=above_ext, ar_avail=lanes(ar_avail))
+        src = flat(sy[:, rc, cc])
         sse = ((preds - src[:, None]) ** 2).sum((-1, -2), dtype=torch.int32)
         # D203 reads below-left pixels the wavefront cannot provide where
         # the spec makes them available: exclude it there
@@ -132,24 +147,24 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
         best = torch.argmin(sse, dim=1)
         pred = preds[torch.arange(preds.shape[0], device=dev), best]
         lvls, recon = _encode_plane_batch(src, pred, qindex, T.TX_8X8, bd)
-        ry[rs, cs] = recon
-        ly[rs, cs] = lvls
-        modes[rs, cs] = mode_ids[best]
+        ry[:, rs, cs] = unflat(recon)
+        ly[:, rs, cs] = unflat(lvls)
+        modes[:, rs, cs] = unflat(mode_ids[best])
 
         # ---- chroma: DC prediction, derived DCT ----
         for rp, lp, sp in ((ru, lu, su), (rv, lv, sv)):
-            above_c = rp[r_up, cs, CHROMA_BS - 1, :]
-            left_c = rp[rs, c_lf, :, CHROMA_BS - 1]
-            tl_c = rp[r_up, c_lf, CHROMA_BS - 1, CHROMA_BS - 1]
+            above_c = flat(rp[:, r_up, cs, CHROMA_BS - 1, :])
+            left_c = flat(rp[:, rs, c_lf, :, CHROMA_BS - 1])
+            tl_c = flat(rp[:, r_up, c_lf, CHROMA_BS - 1, CHROMA_BS - 1])
             cpred = intra.predict_all_modes(
-                above_c, left_c, tl_c, ha, hl, CHROMA_BS, CHROMA_BS, bd,
+                above_c, left_c, tl_c, ha_l, hl_l, CHROMA_BS, CHROMA_BS, bd,
                 modes=(intra.DC,))[:, 0]
-            lc, rec_c = _encode_plane_batch(sp[rc, cc], cpred, qindex,
-                                            T.TX_4X4, bd, T.DCT_DCT)
-            rp[rs, cs] = rec_c
-            lp[rs, cs] = lc
+            lc, rec_c = _encode_plane_batch(flat(sp[:, rc, cc]), cpred,
+                                            qindex, T.TX_4X4, bd, T.DCT_DCT)
+            rp[:, rs, cs] = unflat(rec_c)
+            lp[:, rs, cs] = unflat(lc)
 
-    trim = lambda a: a[:nbh, :nbw]
+    trim = lambda a: a[:, :nbh, :nbw]
     px = MC.pixel_dtype(bd)
     return (trim(modes).to(torch.uint8),
             trim(ly).to(torch.int16), trim(lu).to(torch.int16),
@@ -408,21 +423,22 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
 
 
 def block_planes(plane, bs: int):
-    """[H, W] -> [H/bs, W/bs, bs, bs] block grid (numpy or torch)."""
-    h, w = plane.shape
+    """[..., H, W] -> [..., H/bs, W/bs, bs, bs] block grid (numpy or
+    torch; leading frame dims pass through)."""
+    *lead, h, w = plane.shape
     if h % bs or w % bs:
         raise ValueError(f"plane {h}x{w} is not a multiple of {bs}")
-    b = plane.reshape(h // bs, bs, w // bs, bs)
-    return b.transpose(1, 2) if isinstance(b, torch.Tensor) \
-        else b.transpose(0, 2, 1, 3)
+    b = plane.reshape(*lead, h // bs, bs, w // bs, bs)
+    return b.transpose(-3, -2) if isinstance(b, torch.Tensor) \
+        else b.swapaxes(-3, -2)
 
 
 def unblock_planes(blocks):
-    """[nbh, nbw, bs, bs] -> [H, W] (numpy or torch)."""
-    nbh, nbw, bs, _ = blocks.shape
-    b = blocks.transpose(1, 2) if isinstance(blocks, torch.Tensor) \
-        else blocks.transpose(0, 2, 1, 3)
-    return b.reshape(nbh * bs, nbw * bs)
+    """[..., nbh, nbw, bs, bs] -> [..., H, W] (numpy or torch)."""
+    *lead, nbh, nbw, bs, _ = blocks.shape
+    b = blocks.transpose(-3, -2) if isinstance(blocks, torch.Tensor) \
+        else blocks.swapaxes(-3, -2)
+    return b.reshape(*lead, nbh * bs, nbw * bs)
 
 
 def pad_plane(plane: np.ndarray, target_h: int, target_w: int) -> np.ndarray:

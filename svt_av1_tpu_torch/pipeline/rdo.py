@@ -179,10 +179,11 @@ def sum4_f32(a, first_level: bool):
     the RD merge (the reference's ``_sum4``).  With a = top-left, b =
     top-right, c = bottom-left, d = bottom-right: ((a + b) + c) + d,
     except above the first merge level on a map whose width W is a power
-    of two, where the vectorized sum is (a + b) + (c + d)."""
-    a_, b_ = a[0::2, 0::2], a[0::2, 1::2]
-    c_, d_ = a[1::2, 0::2], a[1::2, 1::2]
-    w = a_.shape[1]
+    of two, where the vectorized sum is (a + b) + (c + d).  Leading
+    (frame) dims pass through."""
+    a_, b_ = a[..., 0::2, 0::2], a[..., 0::2, 1::2]
+    c_, d_ = a[..., 1::2, 0::2], a[..., 1::2, 1::2]
+    w = a_.shape[-1]
     if not first_level and w & (w - 1) == 0:
         return (a_ + b_) + (c_ + d_)
     return ((a_ + b_) + c_) + d_

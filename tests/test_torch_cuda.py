@@ -472,3 +472,120 @@ def test_vod_encoder_card_equals_cpu(cuda):
             for p in ("y", "u", "v"):
                 assert np.array_equal(getattr(a.recon, p),
                                       getattr(b.recon, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("dtype,bs,pad,reach,halo,off", GRID_SITES[1:4],
+                         ids=["cell_refine", "mc_luma", "mc_chroma"])
+def test_batched_kernel_equals_plain(cuda, S, dtype, bs, pad, reach, halo,
+                                     off):
+    """A stack of S planes at a 1080p P step's grid sites gathers in ONE
+    launch and equals the plain version plane by plane."""
+    rng = np.random.default_rng(S * 100 + bs + halo)
+    nbh, nbw = 136, 240        # 8x8 cells (4x4 chroma) of a 1080p frame
+    shape = (S, nbh * bs + 2 * pad + 7, nbw * bs + 2 * pad + 7)
+    plane = rng.integers(0, 256, shape).astype(dtype)
+    mv_r = rng.integers(-reach, reach + 1, (S, nbh, nbw)).astype(np.int32)
+    mv_c = rng.integers(-reach, reach + 1, (S, nbh, nbw)).astype(np.int32)
+    before = TG.gather_tiles.launches
+    got = TG.gather_blocks_grid(T_(plane).to(cuda), T_(mv_r).to(cuda),
+                                T_(mv_c).to(cuda), bs, pad, reach,
+                                halo=halo, off=off)
+    torch.cuda.synchronize()
+    assert TG.gather_tiles.launches == before + 1
+    assert got.shape == (S, nbh * nbw, bs + halo, bs + halo)
+    for s in range(S):
+        want = TG.gather_blocks_grid(T_(plane[s]), T_(mv_r[s]), T_(mv_c[s]),
+                                     bs, pad, reach, halo=halo, off=off)
+        assert torch.equal(got[s].cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_batched_warp_by_centers_equals_plain(cuda, S):
+    """The ME warp of S u8 1080p references in one launch."""
+    from svt_av1_tpu_torch.ops import me as TM
+    rng = np.random.default_rng(7 + S)
+    ref_pad = rng.integers(0, 256, (S, 1088 + 32, 1920 + 32)).astype(
+        np.uint8)
+    cen = rng.integers(-13, 14, (S, 34, 60, 2)).astype(np.int32)
+    before = TG.gather_tiles.launches
+    got = TM.warp_by_centers(T_(ref_pad).to(cuda), T_(cen).to(cuda), 32, 16)
+    torch.cuda.synchronize()
+    assert TG.gather_tiles.launches == before + 1
+    for s in range(S):
+        assert torch.equal(got[s].cpu(), TM.warp_by_centers(
+            T_(ref_pad[s]), T_(cen[s]), 32, 16))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_plane_at_the_32_bit_limit(cuda):
+    """A plane of 2^31 bytes raises before and inside the extension;
+    a stack whose planes together pass 2^31 bytes, each below it,
+    gathers exactly (64-bit plane offsets, no wrap)."""
+    side = 46341                       # side * side > 2^31 - 1
+    big = torch.zeros((1, side, side), dtype=torch.uint8, device=cuda)
+    r = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="32 bits"):
+        TG.gather_tiles_cuda(big, r, r, 8, 8)
+    out = torch.empty((1, 4, 8, 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        TG._kernel()(0, big.data_ptr(), 1, side, side, 1, r.data_ptr(),
+                     r.data_ptr(), out.data_ptr(), 4, 8, 8,
+                     TG._raw_stream(big.get_device()))
+    del big
+    hp = wp = 33000                    # 2 planes: 2.18e9 bytes in all
+    stack = torch.empty((2, hp, wp), dtype=torch.uint8, device=cuda)
+    stack[1, -64:, -64:] = torch.arange(64 * 64, device=cuda).reshape(
+        64, 64).to(torch.uint8)
+    br = torch.tensor([[0, hp - 16], [hp - 64, hp - 8]], dtype=torch.int32,
+                      device=cuda)
+    bc = torch.tensor([[0, wp - 16], [wp - 64, wp - 8]], dtype=torch.int32,
+                      device=cuda)
+    got = TG.gather_tiles_cuda(stack, br, bc, 8, 8)
+    want = torch.stack([torch.stack([stack[s, r:r + 8, c:c + 8]
+                                     for r, c in zip(br[s].tolist(),
+                                                     bc[s].tolist())])
+                        for s in range(2)])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_multistream_card_equals_cpu_with_one_launch_per_site(cuda):
+    """Three lockstep 192x128 streams: the card writes the CPU's bytes,
+    and a P slot launches the gather as often as one stream's P frame at
+    the same settings (5: no global-motion copy), not three times."""
+    from svt_av1_tpu_torch import EncoderConfig
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    from svt_av1_tpu_torch.pipeline.multistream import MultiStreamEncoder
+    kw = dict(width=192, height=128, qp=40, intra_period=-1,
+              pred_structure=0, scene_change_detection=False,
+              recon_output=True)
+    slots = [[synthetic_frame(192, 128, seed=10 * s + i) for s in range(3)]
+             for i in range(3)]
+    out, counts = {}, []
+    for d in ("cuda", "cpu"):
+        ms = MultiStreamEncoder(EncoderConfig(**kw), 3, device=d)
+        res = []
+        for fr in slots:
+            before = TG.gather_tiles.launches
+            res.append(ms.send(fr))
+            if d == "cuda":
+                torch.cuda.synchronize()
+                counts.append(TG.gather_tiles.launches - before)
+        out[d] = res
+    assert counts == [0, 5, 5]
+    one = Encoder(EncoderConfig(**kw).replace(enable_global_motion=False,
+                                              interp_filter=0),
+                  device=cuda)
+    one.send_picture(slots[0][0])
+    one.get_packet()
+    before = TG.gather_tiles.launches
+    one.send_picture(slots[1][0])
+    one.get_packet()
+    torch.cuda.synchronize()
+    assert TG.gather_tiles.launches - before == 5
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert [p.payload for p in a] == [p.payload for p in b]

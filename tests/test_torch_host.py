@@ -66,7 +66,9 @@ def test_unsupported_config_raises_by_name(label, extra):
                                    dict(enable_restoration=True),
                                    dict(pred_structure=2,
                                         enable_adaptive_quantization=2),
-                                   VOD])
+                                   VOD,
+                                   dict(intra_period=-2, device_batch=4),
+                                   dict(intra_period=3, num_gop_shards=2)])
 def test_slice_configs_pass(extra):
     check_slice(EncoderConfig(**{**LDP, **extra}))
 

@@ -9,8 +9,10 @@ with compound prediction, a 64x64 hierarchical-B clip at preset 7 (the
 16x16 keyframe search, a three-reference frame), a 64x64 low-delay-B
 clip (through the Encoder and through the CLI) and a 64x64 10-bit hier-B
 clip at preset 6 with loop restoration and per-superblock adaptive
-quantization (the host restoration stage, ops/restoration) on the CPU
-end to end."""
+quantization (the host restoration stage, ops/restoration), a 64x64
+all-intra batch of 3 frames (device_batch=2), two 64x64 streams in
+lockstep (pipeline/multistream) and two GOPs in lockstep
+(parallel/gop) on the CPU end to end."""
 
 import subprocess
 import sys
@@ -50,6 +52,8 @@ for n in names:
 import chip_smoke  # noqa: F401  (main() is not run)
 assert "svt_av1_tpu_torch.app.enc_app" in names
 assert "svt_av1_tpu_torch.ops.restoration" in names
+assert "svt_av1_tpu_torch.pipeline.multistream" in names
+assert "svt_av1_tpu_torch.parallel.gop" in names
 
 from svt_av1_tpu_torch import EncoderConfig
 from svt_av1_tpu_torch.io.yuv import synthetic_frame
@@ -91,6 +95,20 @@ vod = list(Encoder(cfg.replace(bit_depth=10, pred_structure=2,
     [synthetic_frame(64, 64, seed=i, bit_depth=10) for i in range(5)]))
 coded = [p for p in vod if p.recon is not None]
 assert len(coded) == 5 and str(coded[0].recon.y.dtype) == "uint16"
+batch = Encoder(cfg.replace(intra_period=-2, device_batch=2), device="cpu")
+for i in range(3):
+    batch.send_picture(synthetic_frame(64, 64, seed=i))
+assert [p.pts for p in batch.encode_all([])] == [0, 1, 2]
+from svt_av1_tpu_torch.parallel import GopShardedEncoder
+from svt_av1_tpu_torch.pipeline.multistream import MultiStreamEncoder
+ms = MultiStreamEncoder(cfg, 2, device="cpu")
+for i in range(2):
+    slot = ms.send([synthetic_frame(64, 64, seed=i + s) for s in range(2)])
+    assert len(slot) == 2 and slot[0].is_keyframe == (i == 0)
+gop = list(GopShardedEncoder(cfg, 2, 2, device="cpu").encode_all(
+    [synthetic_frame(64, 64, seed=i) for i in range(3)]))
+assert [(p.pts, p.is_keyframe) for p in gop] == [
+    (0, True), (1, False), (2, True)]
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names), "packets", [len(p.payload) for p in pkts])

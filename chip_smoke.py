@@ -15,7 +15,9 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 plain PyTorch version at every call-site shape of a
                 720p P frame, of a 1080p B frame, of a 1080p preset-6 B
                 frame and of a 4K 10-bit preset-6 B frame (the 4K sites
-                also on int16 planes), and at awkward shapes (odd
+                also on int16 planes), at the sites a 1080p preset-5 B
+                frame adds (the rect leaves' MC patches at cell
+                granularity), and at awkward shapes (odd
                 widths, edge and off-contract starts, three dtypes),
                 exact equality (tolerance 0); then the gather on stacks
                 of S planes (one launch for all S) at every site of a
@@ -48,13 +50,27 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 (display 1, 2, 3, 5), the gather must launch exactly 20 /
                 60 / 80 times for a frame of 1 / 2 / 3 references, and
                 the B frames must hold compound cells;
+  7b. main-P5 — the same 1080p hier-B encode at preset 5 (the tx-type
+                search, rect leaves, the rich intra keyframe): 9 frames;
+                the keyframe must hold 16x16 leaves, 4 frames must be
+                coded from three references, the gather must launch 32 /
+                96 / 128 times for a frame of 1 / 2 / 3 references (the
+                rect leaves' MC adds 12 / 36 / 48), the inter frames
+                must hold rect and compound cells; per frame the wall
+                split into device step, host entropy (the Python tile
+                writer on tiles with rect leaves) and the rest, bytes,
+                PSNR-Y, rect and IDTX cells, gathers, peak memory;
+  7c. main-RC — the 720p low-delay-P config (bench.py:136) under VBR
+                (rate control 2, 2000 kbps at 30 fps), 8 frames: q per
+                frame, bytes and the achieved rate; 6 gathers per P frame;
   8. main-VOD — bench.py:185's 4K 10-bit VOD config and clip
                 (3840x2160, 10-bit, qp 40, hierarchical_levels=3,
                 compound, preset 6, loop restoration, adaptive
-                quantization; io.yuv.vod_clip, 9 frames: a keyframe and
-                one mini-GOP): decode order, 16x16 keyframe leaves, 4
-                three-reference frames, 0 / 20 / 60 / 80 gathers per
-                frame of 0 / 1 / 2 / 3 references, restoration switched
+                quantization; io.yuv.vod_clip, cut to 5 frames: a
+                keyframe and a truncated span of 4): decode order, 16x16
+                keyframe leaves, a three-reference frame, 0 / 20 / 60 /
+                80 gathers per frame of 0 / 1 / 2 / 3 references,
+                restoration switched
                 on, AQ analysis on every inter frame, PSNR-Y (10-bit
                 peak) in range; per frame the wall ms split into device
                 step, host restoration, host analysis, host entropy and
@@ -82,7 +98,11 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 frames, three-reference frames), a 320x192 IPPP clip and
                 a 320x192 LDB clip (preset 7), a 192x128 hier-B clip
                 with AQ 2 (per-SB delta-q) and the 4K VOD config at
-                200x136 (9 frames of its clip); and the port's CLI
+                200x136 (9 frames of its clip), at presets <= 5 a
+                192x128 hier-B clip (preset 5, levels 2) and a 192x128
+                IPPP clip (preset 0), under rate control a 192x128
+                hier-B VBR clip (9 frames) and a 320x192 LDB CVBR clip;
+                and the port's CLI
                 (--pred-struct 1 --tiles-log2 1 --qp-file; hier-B at
                 --preset 7; IPPP at --bit-depth 10) run in this process
                 at --device cuda and at --device cpu on the same
@@ -90,7 +110,8 @@ PATH or under /usr/local/cuda).  Phases, one line of seconds each:
                 and the batched entry points: a 192x128 all-intra clip
                 at device_batch 4 (6 frames, a partial last batch),
                 three lockstep 192x128 streams, two GOPs of 4 frames in
-                lockstep (GopShardedEncoder) and the CLI at --nch 2;
+                lockstep (GopShardedEncoder), two lockstep 192x128 VBR
+                streams (4 slots) and the CLI at --nch 2;
  10. timing   — at each call site, for both designs, one torch.take
                 call and the plain version: event ms (CUDA events around
                 20 back-to-back calls) and host us per call (perf_counter
@@ -113,7 +134,9 @@ one 1080p LDB frame (the B frame's sites without the compound
 patches) and "per_1080p_rd_b_frame" over the 80 of one 1080p preset-6
 B frame coded from three references with compound prediction, and
 "per_4k_10bit_rd_b_frame" over the 80 of one 4K 10-bit preset-6 B
-frame of the same kind, and "per_4x1080p_p_slot" over the 5 batched
+frame of the same kind, "per_1080p_p5_b_frame" over the 128 of one
+1080p preset-5 B frame of the same kind (the preset-6 frame's 80 and
+the rect leaves' 48), and "per_4x1080p_p_slot" over the 5 batched
 launches of one 4-stream 1080p P slot (with the 20 launches four
 separate streams would make beside them).  --out
 DIR also writes the per-shape and per-frame numbers to
@@ -168,9 +191,22 @@ RD1080 = {"warp_by_centers": 3, "subpel_refine_dense_8": 3,
 # reference)
 RD_LAUNCHES = {1: 20, 2: 60, 3: sum(RD1080.values())}
 RD_NREFS = {8: 1, 4: 2, 2: 3, 1: 3, 3: 3, 6: 2, 5: 3, 7: 2}
+# presets <= 5 add the rect hypotheses (HORZ / VERT at the 16 and 32
+# nodes, 4 kinds): each kind's MC at 8x8 luma / 4x4 chroma cells, per
+# plane one patch per reference and ref1's compound patch; for a
+# three-reference compound B frame 4 x 4 luma and 4 x 8 chroma patches
+P5_RECT = {"rect_mc_patch_luma": 16, "rect_mc_patch_chroma": 32}
+P5_LAUNCHES = {n: RD_LAUNCHES[n] + 12 * (n + (n >= 2)) for n in (1, 2, 3)}
 # bench.py:185 run_vod_4k10, "Config 4": its EncoderConfig and its clip
-# (io.yuv.vod_clip), 9 frames: a keyframe and one levels-3 mini-GOP
-W4K, H4K, N_VOD = 3840, 2160, 9
+# (io.yuv.vod_clip), cut from 9 frames (a keyframe and one levels-3
+# mini-GOP) to 5: a keyframe and the truncated span of 4 (display 4 from
+# one reference, 2 and 3 from two, 1 from three), to leave room in the
+# run for the preset-5 and rate-control phases
+W4K, H4K, N_VOD = 3840, 2160, 5
+VOD_ORDER = [0, 4, 2, 1, 3]
+VOD_NREFS = {4: 1, 2: 2, 1: 3, 3: 2}
+# the 720p low-delay-P config (bench.py:136) under VBR (rate control 2)
+N_RC, RC_TBR, RC_FPS = 8, 2_000_000, 30
 # bench.py:115 run_intra_480p ("Config 1"): all-intra 854x480, qp 40,
 # device_batch 32; a 32-frame warm-up batch, then 64 timed frames
 W480, H480, B480, N480 = 854, 480, 32, 64
@@ -239,11 +275,14 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
-def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False, bd=8):
+def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False, bd=8,
+               rect=False):
     """(name, launches per frame on the main path, plane, base_r, base_c,
     gather_tiles kwargs) at the shapes every call site of per_frame has
     in a w x h frame (rd: the RD presets' sites — the per-size MC patches
-    and the dense refine — in place of the preset-8 grid sites), with
+    and the dense refine — in place of the preset-8 grid sites; rect:
+    only the sites presets <= 5 add, the rect leaves' MC at cell
+    granularity, its motion constant over 16x8 halves), with
     bd-bit pixels in the main path's containers (u8, or int16 at 10 bits,
     for the ME warp; int32 padded planes for the rest).  Motion is drawn
     uniformly within each site's reach."""
@@ -269,7 +308,8 @@ def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False, bd=8):
     ar = lambda k: torch.arange(k, dtype=torch.int32, device=dev)
     br = (ar(th)[:, None] * 32 + search + cen[..., 0]).reshape(-1)
     bc = (ar(tw)[None, :] * 32 + search + cen[..., 1]).reshape(-1)
-    sites.append(("warp_by_centers", per_frame["warp_by_centers"], ref_pad,
+    sites.append(("warp_by_centers", per_frame.get("warp_by_centers", 0),
+                  ref_pad,
                   br, bc, dict(nbh=th, nbw=tw, stride=32, band_off=0,
                                band_h=2 * search + 32, th=32, tw=32)))
     nb8 = (ph // 8, pw // 8)
@@ -297,6 +337,14 @@ def call_sites(torch, MC, G, gen, dev, w, h, per_frame, rd=False, bd=8):
             nb = (ph // bs, pw // bs)
             grid.append((f"subpel_refine_dense_{bs}", py_pad,
                          (mv(nb, 16), mv(nb, 16)), bs, pad, pad - 1, 8, -4))
+    if rect:
+        half = lambda reach: mv((ph // 8, pw // 16), reach).repeat_interleave(
+            2, 1)
+        grid = [("rect_mc_patch_luma", py_pad, (half(17), half(17)), 8, pad,
+                 pad, 7, -3),
+                ("rect_mc_patch_chroma", pu_pad, (half(9), half(9)), 4, cpad,
+                 cpad, 7, -3)]
+        sites = []
     for name, plane, (mr, mc), bs, pd, reach, halo, off in grid:
         br, bc, kw = G.grid_tile_args(plane, mr, mc, bs, pd, reach, halo,
                                       off)
@@ -390,6 +438,8 @@ def kernel_phase(torch, MC, G, dev):
         torch, MC, G, gen, dev, W1080, H1080, RD1080, rd=True)]
     sites += [("4K RD B", s) for s in call_sites(
         torch, MC, G, gen, dev, W4K, H4K, RD1080, rd=True, bd=10)]
+    sites += [("1080p P5 rect", s) for s in call_sites(
+        torch, MC, G, gen, dev, W1080, H1080, P5_RECT, rd=True, rect=True)]
     for frame, (name, per_frame, plane, br, bc, kw) in sites:
         th, tw = kw["th"], kw["tw"]
         want = G.gather_tiles_ref(plane, br, bc, th, tw)
@@ -744,7 +794,8 @@ def batch_parity(svt):
     all-intra clip of 6 frames at device_batch 4 (a partial last batch
     flushed by get_packet), three lockstep 192x128 streams
     (MultiStreamEncoder, 3 slots), two 192x128 GOPs of 4 frames in
-    lockstep (GopShardedEncoder) and the CLI at --nch 2; TUs and IVF
+    lockstep (GopShardedEncoder), two lockstep 192x128 streams under
+    VBR (4 slots) and the CLI at --nch 2; TUs and IVF
     files must be identical.  Returns the TU byte sizes."""
     from svt_av1_tpu_torch.app import enc_app
     from svt_av1_tpu_torch.io.yuv import synthetic_frame
@@ -776,12 +827,22 @@ def batch_parity(svt):
         return list(enc.encode_all([synthetic_frame(w, h, seed=130 + i)
                                     for i in range(8)]))
 
+    def multi_vbr(device):
+        ms = MultiStreamEncoder(svt.EncoderConfig(
+            **flat, rate_control_mode=2, target_bit_rate=300_000), 2,
+            device=device)
+        return [p for i in range(4) for p in ms.send(
+            [synthetic_frame(w, h, seed=160 + 10 * s + i)
+             for s in range(2)])]
+
     sizes = {}
     for name, run, n in (("192x128 all-intra, device_batch 4, 6 frames",
                           intra, 6),
                          ("3 x 192x128 MultiStreamEncoder, 3 slots",
                           multi, 9),
-                         ("192x128 GopShardedEncoder G=2 L=4", gop, 8)):
+                         ("192x128 GopShardedEncoder G=2 L=4", gop, 8),
+                         ("2 x 192x128 MultiStreamEncoder VBR, 4 slots",
+                          multi_vbr, 8)):
         out = {d: run(d) for d in ("cuda", "cpu")}
         if len(out["cuda"]) != n or len(out["cpu"]) != n:
             raise AssertionError(f"{name}: expected {n} TUs")
@@ -1129,10 +1190,11 @@ def parity_phase(svt):
     at 192x128 (levels 2, 6 frames, so the flush codes a truncated
     span), LDB at 320x192, tiled IPPP at 320x192 with look-ahead and
     push_qp, at the RD presets hier-B at 192x128 (preset 6, levels 3),
-    IPPP and LDB at 320x192 (preset 7), hier-B with AQ 2 at 192x128, and
-    the 4K VOD config at 200x136 (9 frames of its clip); TUs must be
-    identical.  Then the CLI (also at --bit-depth 10).  Returns the TU
-    byte sizes."""
+    IPPP and LDB at 320x192 (preset 7), hier-B with AQ 2 at 192x128, the
+    4K VOD config at 200x136 (9 frames of its clip), hier-B at preset 5
+    and IPPP at preset 0 at 192x128, and under rate control hier-B VBR
+    at 192x128 and LDB CVBR at 320x192; TUs must be identical.  Then
+    the CLI (also at --bit-depth 10).  Returns the TU byte sizes."""
     from svt_av1_tpu_torch.io.yuv import synthetic_frame, vod_clip
     from svt_av1_tpu_torch.pipeline.encoder import Encoder
     small = dict(width=320, height=192, qp=40, intra_period=-1,
@@ -1170,6 +1232,23 @@ def parity_phase(svt):
               recon_output=True), 80, 7, 13),
         ("200x136 4K-VOD config (10-bit, preset 6, restoration, AQ)",
          dict(VOD_KW, width=200, height=136), None, 9, 17),
+        ("192x128 hier-B preset 5 (tx-type search, rect leaves, rich "
+         "intra)", dict(width=192, height=128, qp=40, intra_period=-1,
+                        pred_structure=2, hierarchical_levels=2,
+                        compound_mode=1, scene_change_detection=False,
+                        enc_mode=5, recon_output=True), 90, 5, 9),
+        ("192x128 IPPP preset 0",
+         dict(width=192, height=128, qp=40, intra_period=-1,
+              pred_structure=0, scene_change_detection=False, enc_mode=0,
+              recon_output=True), 95, 3, 3),
+        ("192x128 hier-B VBR (the GOP planner)",
+         dict(width=192, height=128, intra_period=-1, pred_structure=2,
+              hierarchical_levels=2, compound_mode=1, rate_control_mode=2,
+              target_bit_rate=400_000, scene_change_detection=False,
+              recon_output=True), 100, 9, 17),
+        ("320x192 LDB CVBR", dict(small, pred_structure=1,
+                                  rate_control_mode=3,
+                                  target_bit_rate=300_000), 105, 5, 5),
     ]
     qps = [30, None, 45, 20]
     sizes = {}
@@ -1409,21 +1488,102 @@ def main() -> int:
           "three references)", t)
 
     t = time.time()
+    from svt_av1_tpu_torch.io.yuv import synthetic_clip
+    p5_kw = dict(hierb_kw, enc_mode=5, multi_ref=-1)
+    ptus, precs, p5_launches, penc = vod_path(
+        torch, G, svt, p5_kw, synthetic_clip(W1080, H1080, N_HIERB))
+    pcoded = [p for p in ptus if p.recon is not None]
+    if ([p.display_idx for p in pcoded] != [0, 8, 4, 2, 1, 3, 6, 5, 7]
+            or len(ptus) != 2 * N_HIERB - 1
+            or not all(p.payload for p in ptus)):
+        raise AssertionError("preset-5 hier-B TUs out of the mini-GOP's "
+                             "decode order")
+    if not pcoded[0].leaf16_cells or penc._nrefs3_frames != 4:
+        raise AssertionError("preset 5: no 16x16 keyframe leaf, or not 4 "
+                             "three-reference frames")
+    want_p5 = {0: 0, **{d: P5_LAUNCHES[n] for d, n in RD_NREFS.items()}}
+    pcounts = {d: r["gathers"] for d, r in precs.items()}
+    if pcounts != want_p5 or p5_launches != sum(want_p5.values()):
+        raise AssertionError(f"the preset-5 path launched the gather kernel "
+                             f"{pcounts} times per frame, not {want_p5}")
+    prect = sum(p.rect_cells for p in pcoded[1:])
+    pidtx = sum(p.idtx_cells for p in pcoded[1:])
+    pcomp = sum(p.compound_cells for p in pcoded[2:])
+    if prect <= 0 or pcomp <= 0:
+        raise AssertionError(f"preset 5: {prect} rect cells, {pcomp} "
+                             f"compound cells in the inter frames")
+    p_psnr = {p.display_idx: p.psnr[0] for p in pcoded}
+    if not all(25.0 < v < 60.0 for v in p_psnr.values()):
+        raise AssertionError(f"preset-5 PSNR-Y out of range: {p_psnr}")
+    print(f"  1080p hier-B preset 5: {len(pcoded)} coded + "
+          f"{len(ptus) - len(pcoded)} show-existing TUs, "
+          f"{sum(len(p.payload) for p in ptus)} bytes, keyframe 16x16-leaf "
+          f"cells {pcoded[0].leaf16_cells}, three-reference frames "
+          f"{penc._nrefs3_frames}, rect cells {prect}, IDTX cells {pidtx}, "
+          f"compound cells {pcomp}, gather launches {p5_launches}",
+          flush=True)
+    for p in pcoded:
+        d = p.display_idx
+        r = precs[d]
+        refs = "key" if d == 0 else f"{RD_NREFS[d]} ref"
+        tiles = ("" if d == 0 else f", rect cells {p.rect_cells} "
+                 f"(entropy: {'Python writer' if p.rect_cells else 'C++'})"
+                 f", IDTX cells {p.idtx_cells}")
+        print(f"  display {d} ({refs}): {r['total_s'] * 1e3:.1f} ms = "
+              f"step {r['step_s'] * 1e3:.1f} + entropy "
+              f"{r['entropy_s'] * 1e3:.1f} + other {r['other_s'] * 1e3:.1f}"
+              f"; {len(p.payload)} bytes, PSNR-Y {p_psnr[d]:.2f} dB"
+              f"{tiles}, {r['gathers']} gathers, peak "
+              f"{r['peak_gib']:.2f} GiB", flush=True)
+    pb = [precs[d]["total_s"] for d in range(1, 8)]
+    print(f"  frame ms: key {precs[0]['total_s'] * 1e3:.1f}, base P "
+          f"{precs[8]['total_s'] * 1e3:.1f}, B mean "
+          f"{sum(pb) / 7 * 1e3:.1f}", flush=True)
+    phase("main path 1080p hier-B preset 5 (1 rich key + base P + 7 B, "
+          "tx-type search, rect leaves, three references)", t)
+
+    t = time.time()
+    rc_kw = dict(cfg_kw, rate_control_mode=2, target_bit_rate=RC_TBR,
+                 frame_rate_num=RC_FPS, stat_report=False)
+    from svt_av1_tpu_torch.pipeline.encoder import Encoder
+    enc = Encoder(svt.EncoderConfig(**rc_kw), device="cuda")
+    rpk, rc_counts = [], []
+    for f in synthetic_clip(W720, H720, N_RC):
+        G.gather_tiles.launches = 0
+        enc.send_picture(f)
+        rpk.append(enc.get_packet())
+        rc_counts.append(G.gather_tiles.launches)
+    rc_launches = sum(rc_counts)
+    if rc_counts != [0] + [sum(P720.values())] * (N_RC - 1):
+        raise AssertionError(f"the VBR path launched the gather kernel "
+                             f"{rc_counts} times per frame, not 6 per P")
+    rc_q = [p.qindex for p in rpk]
+    if len(set(rc_q[1:])) < 2:
+        raise AssertionError(f"VBR did not move q: {rc_q}")
+    kbps = sum(len(p.payload) for p in rpk) * 8 * RC_FPS / N_RC / 1e3
+    print(f"  720p IPPP VBR at {RC_TBR / 1e3:.0f} kbps, {RC_FPS} fps: "
+          f"qindex per frame {rc_q}, bytes {[len(p.payload) for p in rpk]}, "
+          f"achieved {kbps:.1f} kbps, gather launches {rc_launches}",
+          flush=True)
+    phase("main path 720p IPPP VBR (rate control 2, 8 frames)", t)
+
+    t = time.time()
     from svt_av1_tpu_torch.io.yuv import vod_clip
     vframes = vod_clip(W4K, H4K, N_VOD)
     vtus, vrecs, vod_launches, venc = vod_path(torch, G, svt, VOD_KW,
                                                vframes)
     vcoded = [p for p in vtus if p.recon is not None]
-    if ([p.display_idx for p in vcoded] != [0, 8, 4, 2, 1, 3, 6, 5, 7]
+    if ([p.display_idx for p in vcoded] != VOD_ORDER
             or len(vtus) != 2 * N_VOD - 1
             or not all(p.payload for p in vtus)):
-        raise AssertionError("4K VOD TUs out of the mini-GOP's decode order")
+        raise AssertionError("4K VOD TUs out of the span's decode order")
     if any(p.recon.y.dtype.name != "uint16" for p in vcoded):
         raise AssertionError("4K VOD recon is not 10-bit (uint16)")
-    if not vcoded[0].leaf16_cells or venc._nrefs3_frames != 4:
-        raise AssertionError("4K VOD: no 16x16 keyframe leaf, or not 4 "
-                             "three-reference frames")
-    want_v = {0: 0, **{d: RD_LAUNCHES[n] for d, n in RD_NREFS.items()}}
+    n3 = sum(n == 3 for n in VOD_NREFS.values())
+    if not vcoded[0].leaf16_cells or venc._nrefs3_frames != n3:
+        raise AssertionError(f"4K VOD: no 16x16 keyframe leaf, or not {n3} "
+                             f"three-reference frame(s)")
+    want_v = {0: 0, **{d: RD_LAUNCHES[n] for d, n in VOD_NREFS.items()}}
     vcounts = {d: r["gathers"] for d, r in vrecs.items()}
     if vcounts != want_v or vod_launches != sum(want_v.values()):
         raise AssertionError(f"the 4K VOD path launched the gather kernel "
@@ -1448,7 +1608,7 @@ def main() -> int:
           f"launches {vod_launches}", flush=True)
     for d in [p.display_idx for p in vcoded]:
         r = vrecs[d]
-        refs = "key" if d == 0 else f"{RD_NREFS[d]} ref"
+        refs = "key" if d == 0 else f"{VOD_NREFS[d]} ref"
         print(f"  display {d} ({refs}): {r['total_s'] * 1e3:.1f} ms = "
               f"step {r['step_s'] * 1e3:.1f} + restoration "
               f"{r['lr_s'] * 1e3:.1f} + analysis {r['analysis_s'] * 1e3:.1f}"
@@ -1457,13 +1617,13 @@ def main() -> int:
               f"{v_psnr[d]:.2f} dB, restoration {r.get('lr_types')} "
               f"({r.get('lr_units_on', 0)} units on), {r['gathers']} "
               f"gathers, peak {r['peak_gib']:.2f} GiB", flush=True)
-    vb = [vrecs[d]["total_s"] for d in range(1, 8)]
+    vb = [vrecs[d]["total_s"] for d in range(1, N_VOD - 1)]
     print(f"  frame ms: key {vrecs[0]['total_s'] * 1e3:.1f}, base P "
-          f"{vrecs[8]['total_s'] * 1e3:.1f}, B mean "
-          f"{sum(vb) / 7 * 1e3:.1f}; peak device memory "
+          f"{vrecs[N_VOD - 1]['total_s'] * 1e3:.1f}, B mean "
+          f"{sum(vb) / len(vb) * 1e3:.1f}; peak device memory "
           f"{max(r['peak_gib'] for r in vrecs.values()):.2f} GiB", flush=True)
-    phase("main path 4K 10-bit VOD (bench.py:185: 1 key + base P + 7 B, "
-          "preset 6, restoration, AQ)", t)
+    phase("main path 4K 10-bit VOD (bench.py:185: 1 key + base P + 3 B of "
+          "a truncated span, preset 6, restoration, AQ)", t)
 
     t = time.time()
     ipkts, irecs, isecs, ipeak = intra_batch_path(torch, svt)
@@ -1523,8 +1683,9 @@ def main() -> int:
         print(f"  {name} card == CPU, bytes {sz}", flush=True)
     phase("card vs CPU: 320x192 IPPP, 192x128 hier-B, 320x192 LDB, tiled "
           "look-ahead push_qp IPPP, preset 6 hier-B, preset 7 IPPP and "
-          "LDB, AQ 2 hier-B, 200x136 VOD config, CLI (also 10-bit), "
-          "all-intra batch, multistream, GOP shards, CLI --nch 2", t)
+          "LDB, AQ 2 hier-B, 200x136 VOD config, preset 5 hier-B, preset "
+          "0 IPPP, VBR hier-B, CVBR LDB, CLI (also 10-bit), all-intra "
+          "batch, multistream (also VBR), GOP shards, CLI --nch 2", t)
 
     t = time.time()
     timing_phase(sites + bsites, timed + btimed)
@@ -1567,13 +1728,18 @@ def main() -> int:
         "source": "svt_av1_tpu_torch/csrc/gather_tiles.cu",
         "replaces": "svt_av1_tpu/ops/gather.py:151",
         "launches": (launches + b_launches + ldb_launches + rd_launches
-                     + vod_launches + live_launches),
+                     + p5_launches + rc_launches + vod_launches
+                     + live_launches),
         "max_abs_err": max(s["max_abs_err"] for s in sites),
         **per_frame("720p P"), "bound_by": "bytes",
         "per_1080p_b_frame": per_frame("1080p B"),
         "per_1080p_ldb_frame": per_frame("1080p B", LDB1080),
         "per_1080p_rd_b_frame": per_frame("1080p RD B"),
         "per_4k_10bit_rd_b_frame": per_frame("4K RD B"),
+        "per_1080p_p5_b_frame": {
+            k: None if None in (a, b) else a + b
+            for (k, a), b in zip(per_frame("1080p RD B").items(),
+                                 per_frame("1080p P5 rect").values())},
         "batched_entry": "gather_tiles on [S, Hp, Wp] planes, [S, N] starts",
         "per_4x1080p_p_slot": dict(
             per_frame("4x1080p P slot"),
@@ -1586,6 +1752,8 @@ def main() -> int:
                               ("1080p LDB frame", "1080p B", LDB1080),
                               ("1080p RD B frame", "1080p RD B", None),
                               ("4K 10-bit RD B frame", "4K RD B", None),
+                              ("1080p preset-5 B frame, its rect sites",
+                               "1080p P5 rect", None),
                               ("4x1080p P slot", "4x1080p P slot", None)):
         extra = ["separate"] if frame == "4x1080p P slot" else \
             [d for d in G.DESIGNS if d != G.MAIN_DESIGN]
@@ -1619,6 +1787,14 @@ def main() -> int:
                          "leaf16_cells": leaf16,
                          "nrefs3_frames": renc._nrefs3_frames,
                          "compound_cells": rcomp},
+            "p5_hierb": {"frames": {str(d): r for d, r in precs.items()},
+                         "tu_bytes": [len(p.payload) for p in ptus],
+                         "psnr_y": {str(d): v for d, v in p_psnr.items()},
+                         "launches": p5_launches, "rect_cells": prect,
+                         "idtx_cells": pidtx, "compound_cells": pcomp},
+            "rc_720p": {"qindex": rc_q, "kbps": kbps,
+                        "tu_bytes": [len(p.payload) for p in rpk],
+                        "launches": rc_counts},
             "vod_4k10": {"frames": {str(d): r for d, r in vrecs.items()},
                          "tu_bytes": [len(p.payload) for p in vtus],
                          "psnr_y": {str(d): v for d, v in v_psnr.items()},

@@ -13,7 +13,7 @@ preset):
   -w/-h           width/height (required for raw YUV)
   -q              quantizer 0..63 (ref -q)
   -n              number of frames to encode
-  --preset        enc_mode 0..8 (ref -enc-mode; the port runs 6..8)
+  --preset        enc_mode 0..8 (ref -enc-mode)
   --intra-period  -2 intra-only, -1 first-frame-only, N = keyframe every N+1
   --pred-struct   0 low-delay P, 1 low-delay B, 2 random access (hier-B)
   --fps           frame rate (IVF header)
@@ -29,8 +29,8 @@ CLI does.  ``--nch N`` encodes N same-geometry channels in lockstep
 (MultiStreamEncoder: ``-i`` and ``-b`` take N comma-separated paths);
 ``--gop-shards G`` (with ``--pred-struct 0`` and ``--intra-period >=
 1``) encodes G GOPs of the one stream in lockstep (GopShardedEncoder).
-Settings the port does not run yet (``--scm``, ``--rc``, presets below
-6, ...) exit non-zero with the refusal's text.
+Settings the port does not run yet (``--scm``, warped motion, film
+grain) exit non-zero with the refusal's text.
 
 Run: python -m svt_av1_tpu_torch.app.enc_app -w 854 -h 480 -q 40 \\
          --synthetic 8 --intra-period -1 --pred-struct 1 -b out.ivf \\

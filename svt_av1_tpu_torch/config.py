@@ -221,9 +221,12 @@ def check_slice(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` naming every enabled setting that the
     port does not run yet.
 
-    The port covers CQP encoding at 8 or 10 bits and presets 6-8 (6-7:
+    The port covers CQP and rate control (1: the bits-model controller;
+    2 / 3: VBR / constrained VBR) at 8 or 10 bits and presets 0-8 (0-7:
     the full-RD inter merge and the 16x16 keyframe partition search;
-    multi_ref -1/0/1, a third reference on hier-B interior frames):
+    multi_ref -1/0/1, a third reference on hier-B interior frames; 0-5:
+    the inter tx-type search, rectangular inter leaves and the rich intra
+    mode set):
     all-intra streams, low-delay-P (IPPP) chains with one reference and
     global motion, low-delay B (``pred_structure=1``: LAST + GOLDEN) and
     hierarchical-B random access (``pred_structure=2``, with or without
@@ -241,9 +244,6 @@ def check_slice(cfg: EncoderConfig) -> None:
     inter = not cfg.intra_only
     hier = inter and cfg.pred_structure == PRED_STRUCT_RANDOM_ACCESS
     gates = {
-        "enc_mode<=5 (txs, rect, rich intra)": cfg.enc_mode <= 5,
-        "rate_control_mode!=0 (only CQP)":
-            cfg.rate_control_mode != RC_MODE_CQP,
         "enable_warped_motion": bool(cfg.enable_warped_motion),
         "screen_content_mode (IBC)": bool(cfg.screen_content_mode),
         "enable_film_grain": bool(cfg.enable_film_grain),

@@ -1,10 +1,12 @@
 """Public encoder API of the port.
 
 Port of svt_av1_tpu/pipeline/encoder.py for the slice it covers: CQP
-at 8 or 10 bits and presets 6-8 (6-7: the full-RD inter merge, the
-16x16 keyframe partition search on inter streams, and with
-multi-reference prediction a third reference on hier-B interior frames)
-— all-intra streams,
+or rate control (1: the bits-model controller; 2 / 3: VBR / constrained
+VBR, whole-mini-GOP planning on hier-B) at 8 or 10 bits and presets 0-8
+(0-7: the full-RD inter merge, the 16x16 keyframe partition search on
+inter streams, and with multi-reference prediction a third reference on
+hier-B interior frames; 0-5 add the inter tx-type search, rectangular
+inter leaves and the rich intra mode set) — all-intra streams,
 low-delay-P (IPPP) chains with one reference
 (``EncoderConfig(intra_period=-1, pred_structure=0)``, with global
 motion), low-delay B (``pred_structure=1``: every frame predicts from
@@ -28,7 +30,10 @@ Dataflow per frame:
   packetization
 
 The encoder is synchronous: IPPP and low-delay-B frames come out as
-they are sent (or, with a look-ahead window, as they leave it).
+they are sent (or, with a look-ahead window, as they leave it).  Rate
+control absorbs a packet's bits when ``get_packet`` (or ``get_recon``)
+reaches it, as the reference package's does, and every packet already
+coded before it plans a hier-B span.
 All-intra frames gather in an inbox of ``device_batch`` frames, which
 one batched device step codes (the wavefront and the in-loop filters
 with a leading frame axis) and the host entropy-codes on a thread pool;
@@ -67,6 +72,8 @@ from svt_av1_tpu_torch.pipeline import intra_encoder as IE
 from svt_av1_tpu_torch.pipeline.gop import (CodeStep, layer_qindex,
                                             plan_minigop, plan_pins)
 from svt_av1_tpu_torch.pipeline.lookahead import Lookahead
+from svt_av1_tpu_torch.pipeline.rate_control import (
+    GopRateController, ModelRateController, RateController)
 from svt_av1_tpu_torch.pipeline.tile import TileWriter
 
 
@@ -93,6 +100,10 @@ class Packet:
     compound_cells: Optional[int] = None
     # keyframes at the RD presets: 8x8 cells inside 16x16 leaves
     leaf16_cells: Optional[int] = None
+    # inter frames at presets <= 5: 8x8 cells inside rect leaves, and
+    # cells coded with IDTX
+    rect_cells: Optional[int] = None
+    idtx_cells: Optional[int] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -130,6 +141,11 @@ class Encoder:
         self._rdo = config.enc_mode <= 7
         self._mrp = (bool(config.multi_ref) if config.multi_ref >= 0
                      else config.enc_mode <= 7)
+        # presets <= 5 add the inter tx-type search, rectangular inter
+        # leaves (PARTITION_HORZ / VERT at the 16 / 32 nodes) and the rich
+        # intra mode set
+        self._txs = config.enc_mode <= 5
+        self._rect = config.enc_mode <= 5
         self.seq = O.SequenceParams(
             config.width, config.height, config.bit_depth, config.sb_size,
             enable_cdef=config.enable_cdef, enable_order_hint=self._hier,
@@ -175,6 +191,24 @@ class Encoder:
         if (config.look_ahead_distance > 0 and not config.intra_only
                 and not self._hier):
             self._la = Lookahead(config.look_ahead_distance)
+        # rate control: the controller, and the feedback of packets coded
+        # but not yet absorbed, in coding order: groups of (packet, layer)
+        # absorbed together (an all-intra batch is one group)
+        self._rc = None
+        self._rc_fb: list = []
+        if config.rate_control_mode != 0:
+            fps = config.frame_rate_num / max(config.frame_rate_den, 1)
+            args = (config.target_bit_rate, fps, config.min_qp_allowed,
+                    config.max_qp_allowed)
+            cvbr = config.rate_control_mode == 3
+            if config.rate_control_mode == 1:
+                self._rc = ModelRateController(*args)
+            elif self._hier:
+                # hier-B VBR / CVBR: whole-mini-GOP planning with
+                # per-layer bit models
+                self._rc = GopRateController(*args, constrained=cvbr)
+            else:
+                self._rc = RateController(*args, constrained=cvbr)
 
     def push_qp(self, qp: Optional[int]) -> None:
         """Queue a per-frame QP override, consumed in coding order (ref
@@ -193,12 +227,32 @@ class Encoder:
 
     def _frame_qindex(self, is_key: bool) -> int:
         """The frame's base qindex: the next push_qp override, else the
-        configured qp (CQP: is_key does not change it)."""
+        rate controller's pick, else the configured qp (CQP: is_key does
+        not change it)."""
         if self._qp_queue:
             override = self._qp_queue.pop(0)
             if override is not None:
                 return _qp_to_qindex(int(override))
+        if self._rc is not None:
+            return self._rc.frame_qindex(is_key)
         return _qp_to_qindex(self.cfg.qp)
+
+    def _emit(self, pkts, layer: int = 0) -> None:
+        """Queue coded packets for get_packet; with rate control their
+        feedback waits, as one group, until get_packet reaches them
+        (layer: the hier-B layer, -1 for a show-existing TU)."""
+        self._packets.extend(pkts)
+        if self._rc is not None:
+            self._rc_fb.append([(p, layer) for p in pkts])
+
+    def _absorb(self, group) -> None:
+        """Rate-control feedback of one group of packets."""
+        for p, layer in group:
+            if layer < 0:
+                self._rc.update(len(p.payload) * 8, False, layer=-1)
+            else:
+                self._rc.update(len(p.payload) * 8, p.is_keyframe,
+                                layer=layer, qindex=p.qindex)
 
     def _scene_cut(self, frame: Frame) -> bool:
         """Scene-change test on a 1/8-scale luma: the mean absolute
@@ -234,8 +288,14 @@ class Encoder:
         # frames are counted by the batch path, which leaves send_idx)
         frame_idx = (self._frame_idx if self.cfg.intra_only
                      else self._send_idx)
-        return {"send_idx": self._send_idx, "frame_idx": frame_idx,
-                "scd_avg": self._scd_avg}
+        st = {"send_idx": self._send_idx, "frame_idx": frame_idx,
+              "scd_avg": self._scd_avg}
+        if self._rc is not None:
+            # the reference's fields (its flat VBR controller has all
+            # three)
+            st["rc"] = {"fullness": self._rc.fullness, "qi": self._rc.qi,
+                        "boot": self._rc._bootstrapped}
+        return st
 
     def restore(self, st: dict) -> None:
         """Resume from a checkpoint() snapshot, in a fresh encoder (e.g.
@@ -253,6 +313,10 @@ class Encoder:
             self._free_slots = list(range(8))
             self._anchor = None
             self._buf = []
+        if "rc" in st and self._rc is not None:
+            self._rc.fullness = st["rc"]["fullness"]
+            self._rc.qi = st["rc"]["qi"]
+            self._rc._bootstrapped = st["rc"]["boot"]
 
     # -- ref eb_svt_enc_stream_header ------------------------------------------
     def stream_header(self) -> bytes:
@@ -335,7 +399,7 @@ class Encoder:
         pkt = self._make_packet(frame, dev, qindex, self._hint(disp), lr,
                                 host)
         pkt.pts = pkt.display_idx = disp
-        self._packets.append(pkt)
+        self._emit([pkt])
 
     def _dispatch_span(self) -> None:
         """Code the buffered span (anchor, last] in dyadic decode order,
@@ -350,6 +414,25 @@ class Encoder:
         frames = dict(self._buf)
         self._buf = []
         steps = plan_minigop(lo, hi)
+        if self._rc is not None:
+            # absorb the feedback of every packet coded so far before
+            # planning (the reference absorbs the packets whose entropy
+            # coding has finished by then)
+            while self._rc_fb:
+                self._absorb(self._rc_fb.pop(0))
+        if hasattr(self._rc, "plan_span"):
+            # the span's layers and complexities (mean absolute
+            # differences of consecutive sources over the buffered
+            # mini-GOP, its look-ahead window) to the GOP planner
+            layers = [st.layer for st in steps if isinstance(st, CodeStep)]
+            mads, prev = [], None
+            for d in sorted(frames):
+                y = frames[d].y
+                if prev is not None:
+                    mads.append(float(np.mean(np.abs(
+                        y.astype(np.int16) - prev.astype(np.int16)))))
+                prev = y
+            self._rc.plan_span(layers, mads)
         pins = plan_pins(steps, lo)
         pins[hi] = pins.get(hi, 0) + 1     # hi becomes the next anchor
         pending_pins = {}
@@ -378,8 +461,8 @@ class Encoder:
             else:
                 payload = O.write_show_existing(
                     self._store[step.disp]["slot"])
-                self._packets.append(Packet(payload, step.disp, False,
-                                            display_idx=step.disp))
+                self._emit([Packet(payload, step.disp, False,
+                                   display_idx=step.disp)], layer=-1)
                 self._unpin(step.disp)
         self._anchor = hi
 
@@ -421,7 +504,7 @@ class Encoder:
             fn = PE.build_p_frame_encoder_dyn(
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
                 cdef=cfg.enable_cdef, bd=cfg.bit_depth, rdo=self._rdo,
-                filt=filt, lr=lr, aq=aq_on)
+                txs=self._txs, filt=filt, lr=lr, rect=self._rect, aq=aq_on)
             out = fn(sy, su, sv, *fwd["dev"], *dyn)
         else:
             compound = cfg.compound_mode > 0
@@ -435,7 +518,8 @@ class Encoder:
             fn = PE.build_b_frame_encoder_dyn(
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
                 cdef=cfg.enable_cdef, compound=compound, bd=cfg.bit_depth,
-                filt=filt, rdo=self._rdo, nrefs=nrefs, lr=lr, aq=aq_on)
+                filt=filt, rdo=self._rdo, nrefs=nrefs, lr=lr, aq=aq_on,
+                txs=self._txs, rect=self._rect)
             extra = third["dev"] if third is not None else ()
             out = fn(sy, su, sv, *fwd["dev"], *bwd["dev"], *extra, *dyn)
         slot = self._free_slots.pop(0)
@@ -463,7 +547,7 @@ class Encoder:
         pkt = self._make_inter_packet(frame, arrs, qindex, None, meta)
         pkt.show = False
         pkt.display_idx = step.disp
-        self._packets.append(pkt)
+        self._emit([pkt], layer=step.layer)
 
     def _is_key(self, idx: int) -> bool:
         p = self.cfg.intra_period
@@ -561,7 +645,7 @@ class Encoder:
             self._ldb_last = (planes, 0)
             pkt = self._make_packet(frame, dev, qindex, 0, lr, host)
             pkt.pts = pkt.display_idx = d
-            self._packets.append(pkt)
+            self._emit([pkt])
             return
         cfg = self.cfg
         _, _, ph64, pw64 = self._geometry
@@ -571,7 +655,7 @@ class Encoder:
             ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
             cdef=cfg.enable_cdef, compound=False, bd=cfg.bit_depth,
             filt=self._pick_interp(frame, qindex), rdo=self._rdo,
-            lr=cfg.enable_restoration)
+            lr=cfg.enable_restoration, txs=self._txs, rect=self._rect)
         out = fn(sy, su, sv, *self._ldb_last[0], *self._ldb_golden[0],
                  qindex, lvls[0], lvls[2], lvls[3])
         ls, gs = self._ldb_last[1], self._ldb_golden[1]
@@ -587,14 +671,17 @@ class Encoder:
         arrs = [a.cpu().numpy() for a in out]
         pkt = self._make_inter_packet(frame, arrs, qindex, None, meta)
         pkt.pts = pkt.display_idx = d
-        self._packets.append(pkt)
+        self._emit([pkt])
 
     def _dispatch_inbox(self) -> None:
         """All-intra: code the inbox's frames as one batch — one q (the
-        next push_qp override or the configured qp; no AQ offset, as the
-        reference's batched path), the 8x8 wavefront at every preset and
-        the in-loop filters with a leading frame axis — then entropy-code
-        the frames on a thread pool (the C++ coder releases the GIL)."""
+        next push_qp override, the rate controller's pick or the
+        configured qp; no AQ offset, as the reference's batched path),
+        the 8x8 wavefront at every preset (with the rich mode set at
+        presets <= 5) and the in-loop filters with a leading frame axis
+        — then entropy-code the frames on a thread pool (the C++ coder
+        releases the GIL).  Rate control absorbs the batch's packets
+        together."""
         if not self._inbox:
             return
         frames, self._inbox = self._inbox, []
@@ -607,7 +694,7 @@ class Encoder:
         postproc = filters and (self._need_recon() or cfg.enable_cdef
                                 or cfg.enable_restoration)
         devs, _ = self._intra_batch(frames, qindex, part16=False,
-                                    postproc=postproc)
+                                    postproc=postproc, rich=self._txs)
 
         def code(i):
             dev, deb = devs[i]
@@ -620,9 +707,9 @@ class Encoder:
 
         if len(frames) > 1:
             with ThreadPoolExecutor(max_workers=min(8, len(frames))) as ex:
-                self._packets.extend(ex.map(code, range(len(frames))))
+                self._emit(list(ex.map(code, range(len(frames)))))
         else:
-            self._packets.append(code(0))
+            self._emit([code(0)])
 
     def _dispatch_one(self, frame: Frame, q_off: int = 0) -> None:
         """IPPP: keyframes (period or scene cut) via the wavefront intra
@@ -657,8 +744,9 @@ class Encoder:
             fn = PE.build_p_frame_encoder_dyn(
                 ph64, pw64, self.seq.mi_rows, self.seq.mi_cols,
                 cdef=self.cfg.enable_cdef, bd=self.cfg.bit_depth,
-                rdo=self._rdo, filt=self._pick_interp(frame, qindex),
-                gm=self._gm_enab, lr=self.cfg.enable_restoration)
+                rdo=self._rdo, txs=self._txs,
+                filt=self._pick_interp(frame, qindex), gm=self._gm_enab,
+                lr=self.cfg.enable_restoration, rect=self._rect)
             out = fn(sy, su, sv, *self._ref_dev, qindex, lvls[0], lvls[2],
                      lvls[3], gmv or (0, 0))
             out, self._ref_dev, lr_meta = self._inter_refs(frame, out)
@@ -674,7 +762,7 @@ class Encoder:
             # the reference's restored IPPP frames carry their display
             # index (its restoration meta sets it)
             pkt.display_idx = idx
-        self._packets.append(pkt)
+        self._emit([pkt])
 
     def _intra_dispatch(self, frame: Frame, qindex: int):
         """Keyframe of an inter stream: wavefront encode + in-loop filters
@@ -687,28 +775,29 @@ class Encoder:
         res, planes = self._intra_batch(
             [frame], qindex, part16=self._rdo,
             postproc=(cfg.enable_deblocking or cfg.enable_cdef
-                      or cfg.enable_restoration))
+                      or cfg.enable_restoration), rich=self._txs)
         dev, deb = res[0]
         return (dev, self._as_ref_planes(*(p[0] for p in planes)),
                 None if deb is None else deb[:3])
 
     def _intra_batch(self, frames, qindex: int, part16: bool,
-                     postproc: bool):
+                     postproc: bool, rich: bool = False):
         """Intra-code S frames in one wavefront with a leading frame axis
-        (part16: the RD presets' 16x16 wavefront, one frame) and their
-        in-loop filters (postproc).  Returns (per frame (host dict for
-        the packet writer, with restoration the deblocked pre-CDEF planes
-        then the frame's recon planes, else None), the frames' recon
-        planes stacked [S, ...] on the device)."""
+        (part16: the RD presets' 16x16 wavefront, one frame; rich: the
+        mode set of presets <= 5) and their in-loop filters (postproc).
+        Returns (per frame (host dict for the packet writer, with
+        restoration the deblocked pre-CDEF planes then the frame's recon
+        planes, else None), the frames' recon planes stacked [S, ...] on
+        the device)."""
         ph, pw, _, _ = self._geometry
         src = self._upload_stack(frames, ph, pw)
         blocks = (IE.block_planes(src[0], 8), IE.block_planes(src[1], 4),
                   IE.block_planes(src[2], 4))
         if part16:
             out = tuple(o[None] for o in IE.frame_step16(
-                *(b[0] for b in blocks), qindex, self.cfg.bit_depth))
+                *(b[0] for b in blocks), qindex, self.cfg.bit_depth, rich))
         else:
-            out = IE.frame_step(*blocks, qindex, self.cfg.bit_depth)
+            out = IE.frame_step(*blocks, qindex, self.cfg.bit_depth, rich)
         planes = tuple(IE.unblock_planes(out[i]) for i in (4, 5, 6))
         cdef_idx = deb = None
         if postproc:
@@ -726,9 +815,10 @@ class Encoder:
             planes, cdef_idx, deb = self._intra_postproc(planes, src, sk,
                                                          qindex, sizes8)
         names = ["modes", "levels_y", "levels_u", "levels_v"]
+        if part16 or rich:
+            names += ["angles", "uv_modes", "cfl"]
         if part16:
-            names += ["angles", "uv_modes", "cfl", "sizes", "levels16_y",
-                      "levels16_u", "levels16_v"]
+            names += ["sizes", "levels16_y", "levels16_u", "levels16_v"]
         host = [out[i].cpu().numpy() for i in range(4)] + \
             [a.cpu().numpy() for a in out[7:]]
         cdef_h = None if cdef_idx is None else cdef_idx.cpu().numpy()
@@ -865,11 +955,14 @@ class Encoder:
         lr = meta_.get("lr")
         qmap = meta_.get("qmap")
         dq_res = meta_.get("dq_res", 0)
-        lay = PE.inter_layout(nr, compound, False, lv8=False, lr=False)
+        lay = PE.inter_layout(nr, compound, self._txs, lv8=False, lr=False,
+                              rect=self._rect)
         sizes = arrs[lay["sizes"]]
         mv = arrs[lay["mv"]].astype(np.int32)
         packs = (arrs[lay["ly"]], arrs[lay["lu"]], arrs[lay["lv"]])
         cdef_idx = arrs[lay["cdef"]] if cfg.enable_cdef else None
+        txty = arrs[lay["txty"]] if self._txs else None
+        shapes = arrs[lay["shape8"]] if self._rect else None
         gm = {1: gmv} if gmv is not None else None
         # per-cell ref types from the step's ref8 field (0 -> ref0,
         # 1 -> ref1, nrefs -> compound: 0 in refs8, the frame-level pair)
@@ -891,6 +984,8 @@ class Encoder:
         sign_bias = (O.ref_sign_biases(self.seq, meta["order_hint"],
                                        meta["ref_hints"])
                      if meta else None)
+        # tiles with rect leaves take the Python writer, as restored frames
+        # do (the C++ coder has neither syntax)
         native = None
         if lr is None and cfg.entropy_backend in ("auto", "cpp"):
             from svt_av1_tpu_torch.entropy import backend
@@ -903,25 +998,33 @@ class Encoder:
             (r0, r1), (c0, c1) = r01, c01
             hm, wm = r1 - r0, c1 - c0
             cells = lambda a: _tile_slice(a, r0, c0, hm, wm, 2, align=8)
-            t_sizes, t_mv, t_refs, t_mv2 = (cells(a) for a in
-                                            (sizes, mv, refs8, mvs2))
+            t_sizes, t_mv, t_refs, t_mv2, t_tt, t_sh = (
+                cells(a) for a in (sizes, mv, refs8, mvs2, txty, shapes))
+            if t_sh is not None and not t_sh.any():
+                t_sh = None             # square-only tile: the C++ coder
             t_pk = tuple(cells(a) for a in packs)
             t_ci = _tile_slice(cdef_idx, r0, c0, hm, wm, 16)
             t_qm = _tile_slice(qmap, r0, c0, hm, wm, 16)
             fc = FrameContext(qindex)
-            if native is not None:
+            if native is not None and t_sh is None:
                 return native.encode_tile_inter_cpp(
                     fc, hm, wm, qindex, t_sizes, t_mv, packs=t_pk,
                     cdef_idx=t_ci, refs=t_refs, sign_bias=sign_bias,
-                    mvs2=t_mv2, comp_pair=comp_pair or (1, 7), txty=None,
+                    mvs2=t_mv2, comp_pair=comp_pair or (1, 7), txty=t_tt,
                     gm=gm, qmap=t_qm, delta_q_res=dq_res)
             lv = {bs: tuple(_unpack_levels(t_pk[p], bs) for p in range(3))
                   for bs in (8, 16, 32, 64)}
+            if t_sh is not None:
+                # rect leaves' grids, keyed (height, width) in pixels
+                for key in ((8, 16), (16, 8), (16, 32), (32, 16)):
+                    lv[key] = tuple(_unpack_levels_rect(
+                        t_pk[p], key[0] // 8, key[1] // 8) for p in range(3))
             tw = TileWriter(fc, hm, wm, qindex, lr=lr, lr_off=(r0, c0),
                             frame_mi=(self.seq.mi_rows, self.seq.mi_cols))
             return tw.encode_inter(t_sizes, t_mv, lv, cdef_idx=t_ci,
                                    refs=t_refs, sign_bias=sign_bias,
-                                   comp_pair=comp_pair, mvs2=t_mv2, gm=gm,
+                                   comp_pair=comp_pair, mvs2=t_mv2,
+                                   txty=t_tt, gm=gm, shapes=t_sh,
                                    qmap=t_qm, delta_q_res=dq_res)
 
         trows, tcols = O.tile_starts(self.seq, cfg.tile_columns_log2,
@@ -968,7 +1071,11 @@ class Encoder:
         # every bit depth; kept for equal stat files)
         psnr = _psnr(frame, recon) if (cfg.stat_report and recon) else None
         return Packet(payload, -1, False, recon, psnr, qindex=qindex,
-                      compound_cells=n_comp)
+                      compound_cells=n_comp,
+                      rect_cells=(None if shapes is None
+                                  else int((shapes > 0).sum())),
+                      idtx_cells=(None if txty is None
+                                  else int((txty == 9).sum())))
 
     def _make_packet(self, frame: Frame, dev: dict, qindex: int,
                      order_hint: int = 0, lr=None, lr_planes=None) -> Packet:
@@ -982,12 +1089,12 @@ class Encoder:
                        recon_v=lr_planes[2])
         fc = FrameContext(qindex)
         cdef_idx = dev.get("cdef_idx") if cfg.enable_cdef else None
-        # the RD presets' 16x16 wavefront: per-cell leaf sizes, the 16x16
-        # leaves' levels and the (zero) angle / DC chroma / CFL maps
-        rd_maps = {}
+        # the rich mode set's angle / chroma mode / CFL maps, and the RD
+        # presets' 16x16 wavefront's per-cell leaf sizes and the 16x16
+        # leaves' levels
+        rd_maps = {k: dev[k] for k in ("angles", "uv_modes", "cfl", "sizes")
+                   if dev.get(k) is not None}
         if dev.get("sizes") is not None:
-            rd_maps = {k: dev[k] for k in ("angles", "uv_modes", "cfl",
-                                           "sizes")}
             rd_maps["levels16"] = (dev["levels16_y"], dev["levels16_u"],
                                    dev["levels16_v"])
         tile = None
@@ -1055,9 +1162,14 @@ class Encoder:
         return (ly, ly, lu, lv)
 
     def _refill(self) -> None:
-        """Flush a partial all-intra batch when no packet is ready."""
+        """Flush a partial all-intra batch when no packet is ready; with
+        rate control, absorb the next packet's feedback (and its group's)
+        when get_packet reaches it."""
         if not self._packets and self._inbox:
             self._dispatch_inbox()
+        if (self._rc_fb and self._packets
+                and self._rc_fb[0][0][0] is self._packets[0]):
+            self._absorb(self._rc_fb.pop(0))
 
     # -- ref eb_svt_get_packet ----------------------------------------------------
     def get_packet(self) -> Optional[Packet]:
@@ -1098,6 +1210,17 @@ def _tile_slice(a, r0: int, c0: int, hm: int, wm: int, mi_cell: int,
     nr = -(-(-(-hm // mi_cell)) // align) * align
     nc = -(-(-(-wm // mi_cell)) // align) * align
     return np.ascontiguousarray(a[rr: rr + nr, cc: cc + nc])
+
+
+def _unpack_levels_rect(packed: np.ndarray, kh: int, kw: int) -> np.ndarray:
+    """Rect-leaf twin of _unpack_levels: [nb8h, nb8w, t, t] cell tiles
+    -> [GH, GW, kh*t, kw*t] rect-leaf grids (kh / kw: the leaf's extent
+    in 8px cells; t = 8 luma / 4 chroma)."""
+    nb8h, nb8w, t, _ = packed.shape
+    gh, gw = nb8h // kh, nb8w // kw
+    return (packed.astype(np.int32)
+            .reshape(gh, kh, gw, kw, t, t).transpose(0, 2, 1, 4, 3, 5)
+            .reshape(gh, gw, kh * t, kw * t))
 
 
 def _unpack_levels(packed: np.ndarray, bs: int) -> np.ndarray:

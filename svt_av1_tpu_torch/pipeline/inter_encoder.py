@@ -1,8 +1,8 @@
 """P- and B-frame encoder in PyTorch: batched ME + MC + transform coding
 with variable partitions.
 
-Port of svt_av1_tpu/pipeline/inter_encoder.py at presets 6-8 (txs=False,
-rect=False), at 8 or 10 bits: ``p_frame_step`` with one reference
+Port of svt_av1_tpu/pipeline/inter_encoder.py at presets 0-8, at 8 or
+10 bits: ``p_frame_step`` with one reference
 (low-delay P and the hierarchical-B base layer, with or without the
 global motion candidate), two (hierarchical-B interior frames: the
 forward and the backward reference, optionally with the
@@ -30,6 +30,12 @@ per-size reference argmin and compound candidate, MC and residual
 coding of every leaf size, and a bottom-up merge on the float32 RD cost
 J = SSE + lambda * bits (evaluated as the reference package's XLA:CPU
 build evaluates it, pipeline/rdo.py) -> per-cell selection -> filters.
+Presets 0-5 add to the RD path the inter tx-type search (txs: every leaf
+of 8/16/32 coded with DCT and with IDTX, the cheaper kept) and
+rectangular leaves (rect: PARTITION_HORZ / VERT at the 16 and 32 nodes,
+each half predicted with the motion of its cheaper square child at 8x8
+cell granularity and coded with the rect transform), which join the
+merge beside NONE and SPLIT.
 
 Every reference-patch read goes through ops.gather (the CUDA tile
 gather on the card).  The reference package's one-hot integer matmuls
@@ -65,16 +71,17 @@ SIZES64 = (8, 16, 32, 64)   # leaf sizes incl. 64x64 (PARTITION_NONE at SB)
 TX_OF = {8: T.TX_8X8, 16: T.TX_16X16, 32: T.TX_32X32, 64: T.TX_64X64}
 TX_OF_C = {8: T.TX_4X4, 16: T.TX_8X8, 32: T.TX_16X16, 64: T.TX_32X32}
 # CDF-derived per-decision rate scalars (pipeline/rdo.py)
-_PART_BITS = RDO.partition_bits()      # {bs: (none_bits, split_bits)}
+_PART_BITS = RDO.partition_bits()   # {bs: (none, split, horz, vert) bits}
 _LEAF = RDO.inter_leaf_bits()          # mode / ref_single / comp_extra
 
 
 def inter_layout(nrefs: int, compound: bool, txs: bool, lv8: bool,
                  lr: bool, rect: bool = False) -> dict:
     """name -> output-tuple index for a p_frame_step build (the port
-    builds txs/lv8/rect False: the first nine names, then ``ref8`` for
-    nrefs >= 2, ``mv2`` for compound and the deblocked planes for lr;
-    the reference package's names and indices for the same flags)."""
+    builds lv8 False: the first nine names, then ``ref8`` for nrefs >=
+    2, ``mv2`` for compound, ``txty`` for txs, ``shape8`` for rect and
+    the deblocked planes for lr; the reference package's names and
+    indices for the same flags)."""
     names = ["sizes", "mv", "ly", "lu", "lv", "rec_y", "rec_u", "rec_v",
              "cdef"]
     if nrefs >= 2:
@@ -99,6 +106,29 @@ def _block(plane, bs: int):
     return plane.reshape(*lead, h // bs, bs, w // bs, bs).transpose(-3, -2)
 
 
+def _block_rect(plane, bh: int, bw: int):
+    """[..., H, W] -> [..., H/bh, W/bw, bh, bw]."""
+    *lead, h, w = plane.shape
+    return plane.reshape(*lead, h // bh, bh, w // bw, bw).transpose(-3, -2)
+
+
+# rect leaf shapes searched by the RD merge (PARTITION_HORZ / VERT at the
+# 16 and 32 nodes; ref ext partition shapes, EbSvtAv1Enc.h:194).  Kind
+# codes of the per-cell leaf map: 0..3 square 8/16/32/64, then these.
+RECT_KINDS = {4: (16, "h"), 5: (16, "v"), 6: (32, "h"), 7: (32, "v")}
+KIND_SIZE = np.array([8, 16, 32, 64, 16, 16, 32, 32], np.int32)
+KIND_SHAPE = np.array([0, 0, 0, 0, 1, 2, 1, 2], np.int32)  # 1 HORZ, 2 VERT
+# rect luma / chroma tx per kind (HORZ at node 16 is 16 wide, 8 high)
+RECT_TX = {4: T.TX_16X8, 5: T.TX_8X16, 6: T.TX_32X16, 7: T.TX_16X32}
+RECT_TX_C = {4: T.TX_8X4, 5: T.TX_4X8, 6: T.TX_16X8, 7: T.TX_8X16}
+
+
+def _rect_dims(kind: int):
+    """(height, width) in luma pixels of a rect kind's leaf."""
+    ns, shp = RECT_KINDS[kind]
+    return (ns // 2, ns) if shp == "h" else (ns, ns // 2)
+
+
 def _unblock(blocks):
     """[..., nbh, nbw, bh, bw] -> [..., nbh*bh, nbw*bw]."""
     *lead, nbh, nbw, bh, bw = blocks.shape
@@ -115,6 +145,11 @@ def _up(a, k: int, dim: int = 0):
 
 def _up1(a, k: int):
     return _up(a, k, 1)
+
+
+def _up1_hw(a, kh: int, kw: int):
+    """Repeat dims (1, 2) of a [S, h, w, ...] map kh and kw times."""
+    return a.repeat_interleave(kh, 1).repeat_interleave(kw, 2)
 
 
 def _encode_plane(src_blocks, pred_blocks, qindex, tx_size: int,
@@ -395,13 +430,20 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         recon_y [ph,pw], recon_u, recon_v (MC.pixel_dtype(bd)), cdef idx
         [sb rows, sb cols] u8[, ref8 [nb8h,nb8w] u8 (index of the cell's
         reference, nrefs = compound) when nrefs >= 2][, mv2 [nb8h,nb8w,2]
-        i16 (the compound cells' ref1 MV) when compound][, deb_y, deb_u,
+        i16 (the compound cells' ref1 MV) when compound][, txty
+        [nb8h,nb8w] u8 (the cell's luma tx type: 0 DCT, 9 IDTX) when
+        txs][, shape8 [nb8h,nb8w] u8 (0 square leaf, 1 HORZ, 2 VERT; a
+        rect cell's size is its node's) when rect][, deb_y, deb_u,
         deb_v: the deblocked, pre-CDEF planes at the mode-info extent,
-        when lr]) — inter_layout(nrefs, compound, False, False, lr) order.
+        when lr]) — inter_layout(nrefs, compound, txs, False, lr, rect)
+        order.
     rdo=False is preset 8 (fast SAD merge, then one quarter-pel
     refinement per 8x8 cell); rdo=True the RD presets 6-7 (dense
     quarter-pel refinement per size, 64x64 candidates, residual coding
-    of every leaf size and a float32 RD merge).  With nrefs=3 the third
+    of every leaf size and a float32 RD merge; with txs the DCT / IDTX
+    search per leaf, with rect the HORZ / VERT leaves at the 16 and 32
+    nodes — presets 0-5; both need rdo, as in the reference package,
+    which ignores them without it).  With nrefs=3 the third
     reference (ALTREF) joins the per-size argmin; compound pairs
     (ref0, ref1).  qindex and the loop-filter levels are Python ints;
     gmv is the frame's (row, col) global translation in 1/8 pel (gm=True
@@ -412,11 +454,14 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     """
     unported = {"nrefs>3": nrefs > 3,
                 "compound with nrefs=1": compound and nrefs == 1,
-                "txs": txs, "rect": rect, "filters=False": not filters}
+                "filters=False": not filters}
     off = [k for k, v in unported.items() if v]
     if off:
         raise NotImplementedError(f"p_frame_step: {', '.join(off)} "
                                   "not ported")
+    # the tx-type search and the rect leaves belong to the RD merge
+    txs = txs and rdo
+    rect = rect and rdo
     pad = search + 1
     cpad = pad // 2 + 1
     r2 = 4 if rdo else 3    # +-r2 full-pel lattice around the HME centers
@@ -464,10 +509,13 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         if qmap is not None:
             qmap = torch.as_tensor(qmap, device=dev).to(torch.int32)
 
-        def qq(bs: int):
-            """The quantizer of residual coding at leaf size bs: the
-            frame q, or with aq the per-SB map expanded to the blocks."""
-            return q if qmap is None else _up1(qmap, 64 // bs)
+        def qq(bh: int, bw: int = None):
+            """The quantizer of residual coding at leaf size bh x bw
+            (square when bw is None): the frame q, or with aq the per-SB
+            map expanded to the blocks."""
+            if qmap is None:
+                return q
+            return _up1_hw(qmap, 64 // bh, 64 // (bw or bh))
         sy = sy.to(torch.int32)
         su = su.to(torch.int32)
         sv = sv.to(torch.int32)
@@ -564,8 +612,8 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                     cost[bs] = torch.minimum(costg, cost[bs])
 
         if rdo:
-            use16, use32, use64, rd = _rd_decide(
-                sy, su, sv, padded, per_ref, mv, cost, qq, lam, ac, ins)
+            kind8, rd = _rd_decide(sy, su, sv, padded, per_ref, mv, cost, qq,
+                                   lam, ac, ins)
         else:
             # --- fast SAD-domain rate-biased partition merge on the
             # cheapest reference's cost at every size ------------------
@@ -587,17 +635,21 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             j_split64 = _sum4(j_at32) + sp[64]
             j64 = cost[64] + oh[64]
             use64 = (j64 <= j_split64) & ins[64]
+            kind8 = _kind_map(torch.where(use16, 0, 3),
+                              torch.where(use32, 0, 3), use64)
 
-        # per-8x8-cell leaf-kind map: 0..3 = square 8/16/32/64
-        kind8 = torch.where(_up1(use64, 8), 3,
-                            torch.where(_up1(use32, 4), 2,
-                                        torch.where(_up1(use16, 2), 1, 0)))
-        size8 = (8 << kind8).to(torch.uint8)
+        # per-8x8-cell leaf kind: 0..3 square 8/16/32/64, 4..7 rect
+        kind_size = torch.as_tensor(KIND_SIZE, device=dev)
+        size8 = kind_size[kind8.long()].to(torch.uint8)
+        rect_d = rd["rect"] if rdo else {}
 
         def kpick(per_kind, dtype):
-            """Per-cell select over leaf kinds ({kind: cell array})."""
+            """Per-cell select over leaf kinds ({kind: cell array}; kinds
+            absent from the map never win)."""
             out = per_kind[0]
-            for k in (1, 2, 3):
+            for k in sorted(per_kind):
+                if k == 0 or per_kind[k] is None:
+                    continue
                 m = kind8 == k
                 v = per_kind[k]
                 if v.dim() > m.dim():
@@ -607,14 +659,23 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
 
         sq_cells = lambda d: {0: d[8], 1: _up1(d[16], 2),
                               2: _up1(d[32], 4), 3: _up1(d[64], 8)}
-        ref8 = mv2_sel = None
+        # a cell field per kind: the square leaves' maps and the rect
+        # leaves' cell maps under name
+        cells = lambda d, name: {**sq_cells(d), **{k: v[name] for k, v in
+                                                   rect_d.items()}}
+        ref8 = mv2_sel = txty8 = None
         if rdo:
             levels, rec_planes = rd["levels"], rd["rec"]
-            mv_sel = kpick(sq_cells(rd["mv"]), torch.int16)
+            mv_sel = kpick(cells(rd["mv"], "mv"), torch.int16)
             if nrefs >= 2:
-                ref8 = kpick(sq_cells(rd["sel"]), torch.uint8)
+                ref8 = kpick(cells(rd["sel"], "sel"), torch.uint8)
             if compound:
-                mv2_sel = kpick(sq_cells(rd["mv2"]), torch.int16)
+                mv2_sel = kpick(cells(rd["mv2"], "mv2"), torch.int16)
+            if txs:
+                # rect leaves code DCT only
+                tt = sq_cells(rd["txty"])
+                txty8 = kpick({**tt, **{k: torch.zeros_like(tt[0])
+                                        for k in rect_d}}, torch.uint8)
         else:
             mv_sel, ref8, mv2_sel, levels, rec_planes = _fast_refine_code(
                 sy, su, sv, padded, per_ref, per_ref_mv, kind8, kpick,
@@ -626,6 +687,8 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             out = rec_planes[8][idx_plane]
             for k, bs_ in ((1, 16), (2, 32), (3, 64)):
                 out = torch.where(km == k, rec_planes[bs_][idx_plane], out)
+            for k, v in rect_d.items():
+                out = torch.where(km == k, v["rec"][idx_plane], out)
             return out
 
         rec_y = select_plane(0, 0)
@@ -634,8 +697,10 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
 
         # --- level pack: per 8x8 cell, the SELECTED leaf's tiles --------
         def pack_cells(pidx, t):
-            return kpick({i: _tiles8(levels[bs_][pidx], t)
-                          for i, bs_ in enumerate(SIZES64)}, torch.int16)
+            return kpick({**{i: _tiles8(levels[bs_][pidx], t)
+                             for i, bs_ in enumerate(SIZES64)},
+                          **{k: _tiles8(v["levels"][pidx], t)
+                             for k, v in rect_d.items()}}, torch.int16)
 
         ly_pack = pack_cells(0, 8)
         lu_pack = pack_cells(1, 4)
@@ -648,29 +713,41 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         sz8 = size8[:, : ph_mi // 8, : pw_mi // 8].to(torch.int32)
         idx_sb = torch.zeros((S, -(-ph_mi // 64), -(-pw_mi // 64)),
                              dtype=torch.uint8, device=dev)
-        upy = _up1(sz8, 8)
-        upc = _up1(sz8 >> 1, 4)
-        cy = DB.deblock_plane(cy, upy, lf_levels[0], lf_levels[1], True,
-                              bd=bd)
-        cu = DB.deblock_plane(cu, upc, lf_levels[2], lf_levels[2], False,
-                              bd=bd)
-        cv = DB.deblock_plane(cv, upc, lf_levels[3], lf_levels[3], False,
-                              bd=bd)
+        # per-direction tx extents (they differ at rect leaves: vertical
+        # edges follow the tx WIDTH, horizontal ones the HEIGHT)
+        szw8 = szh8 = sz8
+        if rect:
+            k8c = kind8[:, : ph_mi // 8, : pw_mi // 8].long()
+            szw8 = torch.where(k8c >= 4, torch.as_tensor(
+                [0, 0, 0, 0, 16, 8, 32, 16], device=dev)[k8c], sz8)
+            szh8 = torch.where(k8c >= 4, torch.as_tensor(
+                [0, 0, 0, 0, 8, 16, 16, 32], device=dev)[k8c], sz8)
+        upy = lambda a: _up1(a, 8)
+        upc = lambda a: _up1(a >> 1, 4)
+        cy = DB.deblock_plane(cy, upy(szw8), lf_levels[0], lf_levels[1],
+                              True, bd=bd, sizes_px_h=upy(szh8))
+        cu = DB.deblock_plane(cu, upc(szw8), lf_levels[2], lf_levels[2],
+                              False, bd=bd, sizes_px_h=upc(szh8))
+        cv = DB.deblock_plane(cv, upc(szw8), lf_levels[3], lf_levels[3],
+                              False, bd=bd, sizes_px_h=upc(szh8))
         # the deblocked (pre-CDEF) planes: loop restoration's stripe
         # context rows come from these (spec save_deblock_boundary_lines)
         deb = (cy, cu, cv)
 
         if cdef:
             # per-8x8-unit skip: the selected LEAF has all-zero levels
-            def skipmap(lv3, rep):
+            def skipmap(lv3, kh, kw):
                 z = ((lv3[0] == 0).all(-1).all(-1)
                      & (lv3[1] == 0).all(-1).all(-1)
                      & (lv3[2] == 0).all(-1).all(-1))
-                return _up1(z, rep)
+                return _up1_hw(z, kh, kw)
 
-            sk = kpick({i: skipmap(levels[bs_], bs_ // 8)
-                        for i, bs_ in enumerate(SIZES64)},
-                       torch.bool)[:, : sz8.shape[1], : sz8.shape[2]]
+            sks = {i: skipmap(levels[bs_], bs_ // 8, bs_ // 8)
+                   for i, bs_ in enumerate(SIZES64)}
+            for k, v in rect_d.items():
+                bh_, bw_ = _rect_dims(k)
+                sks[k] = skipmap(v["levels"], bh_ // 8, bw_ // 8)
+            sk = kpick(sks, torch.bool)[:, : sz8.shape[1], : sz8.shape[2]]
             damping = CD.pick_damping(q)
             (cy, cu, cv), idx_sb = CD.cdef_search_and_apply(
                 (cy, cu, cv), (crop(sy, 0), crop(su, 1), crop(sv, 1)), sk,
@@ -687,6 +764,11 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
             out = out + (ref8,)
         if compound:
             out = out + (mv2_sel,)
+        if txs:
+            out = out + (txty8,)
+        if rect:
+            out = out + (torch.as_tensor(KIND_SHAPE, device=dev)[
+                kind8.long()].to(torch.uint8),)
         if lr:
             out = out + tuple(p.to(px) for p in deb)
         return out
@@ -716,9 +798,13 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     def _rd_decide(sy, su, sv, padded, per_ref, mv, cost, qq, lam, ac, ins):
         """The RD presets' decision: 64x64 candidates per reference, the
         per-size argmin over the references and the compound candidate,
-        residual coding of every leaf size against its own prediction,
-        and the bottom-up float32 RD merge.  Returns (use16, use32,
-        use64, {"levels", "rec", "mv", "sel", "mv2"} per size)."""
+        residual coding of every leaf size against its own prediction
+        (with txs: DCT and IDTX, the cheaper kept), the rect hypotheses
+        (with rect), and the bottom-up float32 RD merge.  Returns (the
+        per-cell leaf-kind map, {"levels", "rec", "mv", "sel", "mv2",
+        "txty"} per size and "rect": {kind: {"mv", "sel", "mv2",
+        "levels", "rec"}})."""
+        dev = sy.device
         src_of = {bs: _block(sy, bs) for bs in SIZES64}
 
         def me64(i, mv32):
@@ -746,7 +832,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
         sel = {bs: None for bs in SIZES64}
         mv_c = {bs: None for bs in SIZES64}    # compound second (bwd) MV
         if nrefs >= 2:
-            mvs_all, costs_all = [mv], [cost]
+            mvs_all, costs_all = [dict(mv)], [dict(cost)]
             for i in range(1, nrefs):
                 mvi, costi = dict(per_ref[i][0]), dict(per_ref[i][1])
                 mvi[64], costi[64] = me64(i, mvi[32])
@@ -754,7 +840,7 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                 costs_all.append(costi)
             for bs in SIZES64:
                 s = torch.zeros(costs_all[0][bs].shape, dtype=torch.uint8,
-                                device=sy.device)
+                                device=dev)
                 best_c, best_mv = costs_all[0][bs], mvs_all[0][bs]
                 for i in range(1, nrefs):
                     better = costs_all[i][bs] < best_c
@@ -781,16 +867,19 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                     mv[bs] = torch.where(use_c[..., None], mvs_all[0][bs],
                                          best_mv)
                     mv_c[bs] = mvs_all[1][bs]
+                    cost[bs] = torch.minimum(cost_c, best_c)
                 else:
                     sel[bs] = s
                     mv[bs] = best_mv
+                    cost[bs] = best_c
 
         # --- per-size MC + residual coding + RD cost: J = SSE of the
         # recon (all planes) + lambda_rd * (coefficient + MV + mode bits),
         # lambda_rd ~ 0.25 qstep^2, in float32 as the reference evaluates
         # it (one fused multiply-add, pipeline/rdo.py) -----------------
         lam_rd = float(max(4, (ac * ac) >> 8))         # exact in float32
-        levels, rec, jcost = {}, {}, {}
+        sse = lambda a, b: ((a - b) ** 2).sum((-1, -2), dtype=torch.int32)
+        levels, rec, jcost, txty = {}, {}, {}, {}
         for bs in SIZES64:
             cbs = bs // 2
             su_b, sv_b = _block(su, cbs), _block(sv, cbs)
@@ -807,22 +896,119 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
                     sel[bs] == nrefs,
                     ME.mv_rate_bits(mv_c[bs] - per_ref[1][2][bs] * 8)
                     + COMP_EXTRA_BITS, 0)
-            ly, rec_y = _encode_plane(src_of[bs], pred_y, qq(bs), TX_OF[bs],
-                                      bd)
-            lu, rec_u = _encode_plane(su_b, pred_u, qq(bs), TX_OF_C[bs], bd)
-            lv, rec_v = _encode_plane(sv_b, pred_v, qq(bs), TX_OF_C[bs], bd)
-            sse = lambda a, b: ((a - b) ** 2).sum((-1, -2), dtype=torch.int32)
-            d = sse(src_of[bs], rec_y) + sse(su_b, rec_u) + sse(sv_b, rec_v)
-            r = _coeff_bits(ly) + _coeff_bits(lu) + _coeff_bits(lv) + base_r
-            jcost[bs] = RDO.fma_f32(lam_rd, r.to(torch.float32),
-                                    d.to(torch.float32))
-            levels[bs] = (ly.to(torch.int16), lu.to(torch.int16),
-                          lv.to(torch.int16))
-            rec[bs] = (_unblock(rec_y), _unblock(rec_u), _unblock(rec_v))
+            # tx-type search (ref ENCDEC_TX_SEARCH full loop,
+            # EbProductCodingLoop.c:1880): the leaf coded with each type
+            # of the inter reduced set (DCT, IDTX), chroma inheriting the
+            # luma type; a winner without luma coefficients never codes
+            # the type (the decoder infers DCT), so only a variant with
+            # luma coefficients may displace DCT.  Dim-64 is DCT-only.
+            best = None
+            for ty in ((T.DCT_DCT,) if (not txs or bs == 64)
+                       else (T.DCT_DCT, T.IDTX)):
+                ly, rec_y = _encode_plane(src_of[bs], pred_y, qq(bs),
+                                          TX_OF[bs], bd, ty)
+                lu, rec_u = _encode_plane(su_b, pred_u, qq(bs), TX_OF_C[bs],
+                                          bd, ty)
+                lv, rec_v = _encode_plane(sv_b, pred_v, qq(bs), TX_OF_C[bs],
+                                          bd, ty)
+                d = sse(src_of[bs], rec_y) + sse(su_b, rec_u) \
+                    + sse(sv_b, rec_v)
+                r = _coeff_bits(ly) + _coeff_bits(lu) + _coeff_bits(lv) \
+                    + base_r
+                j = RDO.fma_f32(lam_rd, r.to(torch.float32),
+                                d.to(torch.float32))
+                cand = [j, ly, lu, lv, rec_y, rec_u, rec_v,
+                        torch.full(j.shape, ty, dtype=torch.uint8,
+                                   device=dev)]
+                if best is None:
+                    best = cand
+                    continue
+                pick = (j < best[0]) & (ly != 0).any(-1).any(-1)
+                best = [torch.where(pick.reshape(pick.shape + (1,) * (
+                    a.dim() - pick.dim())), a, b_)
+                    for a, b_ in zip(cand, best)]
+            jcost[bs] = best[0]
+            txty[bs] = best[7]
+            levels[bs] = tuple(a.to(torch.int16) for a in best[1:4])
+            rec[bs] = tuple(_unblock(a) for a in best[4:7])
 
-        use16, use32, use64, _ = rd_merge(jcost, lam_rd, ins)
-        return use16, use32, use64, {"levels": levels, "rec": rec, "mv": mv,
-                                     "sel": sel, "mv2": mv_c}
+        rect_d = _rect_hypotheses(sy, su, sv, padded, per_ref, mv, cost, sel,
+                                  mv_c, qq, lam_rd) if rect else {}
+        use16, use32, use64, maps = rd_merge(
+            jcost, lam_rd, ins,
+            {k: v["j"] for k, v in rect_d.items()} if rect else None)
+        kind8 = _kind_map(maps["choice16"], maps["choice32"], use64)
+        return kind8, {"levels": levels, "rec": rec, "mv": mv, "sel": sel,
+                       "mv2": mv_c, "txty": txty, "rect": rect_d}
+
+    def _rect_hypotheses(sy, su, sv, padded, per_ref, mv, cost, sel, mv_c,
+                         qq, lam_rd):
+        """The rect leaves (PARTITION_HORZ / VERT at the 16 and 32 nodes):
+        each half inherits the full inter descriptor (MV, reference
+        choice, second MV) of the cheaper of its two square children at
+        the half size, is predicted at 8x8-cell granularity (the
+        interpolation is translation-invariant) and coded with the rect
+        transform; its node J is the two halves' J.  ref: ext partition
+        shapes in mode_decision_sb (EbProductCodingLoop.c:3300).
+        Returns {kind: {"j" node map, cell maps "mv" / "sel" / "mv2",
+        "levels" (rect block grids), "rec" (planes)}}."""
+        out = {}
+        sse = lambda a, b: ((a - b) ** 2).sum((-1, -2), dtype=torch.int32)
+        for kind, (ns, shp) in RECT_KINDS.items():
+            cs = ns // 2
+            horz = shp == "h"
+            bh_, bw_ = _rect_dims(kind)
+            # the two children of a half: columns (HORZ) or rows (VERT)
+            # of the half-size map, pairwise
+            if horz:
+                slc = (lambda a: a[:, :, 0::2], lambda a: a[:, :, 1::2])
+            else:
+                slc = (lambda a: a[:, 0::2], lambda a: a[:, 1::2])
+            sel_b = slc[1](cost[cs]) < slc[0](cost[cs])
+
+            def pick(a, _s=sel_b, _sl=slc):
+                m = _s[..., None] if a.dim() == 4 else _s
+                return torch.where(m, _sl[1](a), _sl[0](a))
+
+            rmv = pick(mv[cs])
+            rpri = pick(per_ref[0][2][cs])
+            rsel = None if sel[cs] is None else pick(sel[cs])
+            rmv2 = None if mv_c[cs] is None else pick(mv_c[cs])
+            up = lambda a: _up1_hw(a, bh_ // 8, bw_ // 8)
+            cmv = up(rmv).to(torch.int32)
+            csel = None if rsel is None else up(rsel)
+            cmv2 = None if rmv2 is None else up(rmv2).to(torch.int32)
+            py_ = _unblock(mc_one(padded, 0, False, 8, pad, cmv, cmv2, csel))
+            pu_ = _unblock(mc_one(padded, 1, True, 4, cpad, cmv, cmv2, csel))
+            pv_ = _unblock(mc_one(padded, 2, True, 4, cpad, cmv, cmv2, csel))
+            qr = qq(bh_, bw_)
+            sby = _block_rect(sy, bh_, bw_)
+            sbu = _block_rect(su, bh_ // 2, bw_ // 2)
+            sbv = _block_rect(sv, bh_ // 2, bw_ // 2)
+            ly_, ry_ = _encode_plane(sby, _block_rect(py_, bh_, bw_), qr,
+                                     RECT_TX[kind], bd)
+            lu_, ru_ = _encode_plane(sbu, _block_rect(pu_, bh_ // 2, bw_ // 2),
+                                     qr, RECT_TX_C[kind], bd)
+            lv_, rv_ = _encode_plane(sbv, _block_rect(pv_, bh_ // 2, bw_ // 2),
+                                     qr, RECT_TX_C[kind], bd)
+            d = sse(sby, ry_) + sse(sbu, ru_) + sse(sbv, rv_)
+            r = (_coeff_bits(ly_) + _coeff_bits(lu_) + _coeff_bits(lv_)
+                 + ME.mv_rate_bits(rmv - rpri * 8) + mode_bits)
+            if compound:
+                rpri2 = pick(per_ref[1][2][cs])
+                r = r + torch.where(rsel == nrefs,
+                                    ME.mv_rate_bits(rmv2 - rpri2 * 8)
+                                    + COMP_EXTRA_BITS, 0)
+            jr = RDO.fma_f32(lam_rd, r.to(torch.float32), d.to(torch.float32))
+            out[kind] = {
+                "j": (jr[:, 0::2] + jr[:, 1::2]) if horz
+                else (jr[:, :, 0::2] + jr[:, :, 1::2]),
+                "mv": cmv.to(torch.int16), "sel": csel,
+                "mv2": None if cmv2 is None else cmv2.to(torch.int16),
+                "levels": (ly_.to(torch.int16), lu_.to(torch.int16),
+                           lv_.to(torch.int16)),
+                "rec": (_unblock(ry_), _unblock(ru_), _unblock(rv_))}
+        return out
 
     def _fast_refine_code(sy, su, sv, padded, per_ref, per_ref_mv, kind8,
                           kpick, sq_cells, qq, lam):
@@ -955,16 +1141,21 @@ def p_frame_step(ph: int, pw: int, mi_rows: int, mi_cols: int, *,
     return step
 
 
-def rd_merge(jcost: dict, lam_rd: float, ins: dict):
-    """The RD presets' bottom-up partition merge (square leaves only):
-    at each node the whole block (J + lambda_rd * PARTITION_NONE bits,
-    only inside the frame) against its four children's best J +
-    lambda_rd * PARTITION_SPLIT bits, in the reference's float32
-    evaluation (pipeline/rdo.py).
+def rd_merge(jcost: dict, lam_rd: float, ins: dict, rect_j=None):
+    """The RD presets' bottom-up partition merge: at each node the whole
+    block (J + lambda_rd * PARTITION_NONE bits, only inside the frame)
+    against its four children's best J + lambda_rd * PARTITION_SPLIT
+    bits, in the reference's float32 evaluation (pipeline/rdo.py).
+    With rect_j ({kind: node J map} of RECT_KINDS, presets <= 5) the 16
+    and 32 nodes also weigh HORZ and VERT (+ their partition bits, only
+    inside the frame): the least J wins, NONE before HORZ before VERT
+    before SPLIT on ties.
 
-    jcost: {bs: [ph/bs, pw/bs] float32 leaf J}; lam_rd: float32-valued;
-    ins: {16/32/64: bool inside masks}.  Returns (use16, use32, use64,
-    {name: float32 map} — the j8 / j_split / j_at maps, for tests)."""
+    jcost: {bs: [..., ph/bs, pw/bs] float32 leaf J}; lam_rd:
+    float32-valued; ins: {16/32/64: bool inside masks}.  Returns (use16,
+    use32, use64 — NONE at each level, {name: map}: the j8 / j_split /
+    j_at float32 maps and choice16 / choice32 (0 NONE, 1 HORZ, 2 VERT,
+    3 SPLIT))."""
     none_j = {bs: RDO.scalar_product_f32(lam_rd, _PART_BITS[bs][0])
               for bs in SIZES64}
     split_j = {bs: RDO.scalar_product_f32(lam_rd, _PART_BITS[bs][1])
@@ -976,12 +1167,40 @@ def rd_merge(jcost: dict, lam_rd: float, ins: dict):
     for bs in (16, 32, 64):
         j_split = RDO.sum4_f32(j_at, bs == 16) + split_j[bs]
         j_bs = torch.where(ins[bs], jcost[bs] + none_j[bs], inf)
-        use[bs] = j_bs <= j_split
-        j_at = torch.where(use[bs], j_bs, j_split)
+        if rect_j is not None and bs < 64:
+            kh, kv = (4, 5) if bs == 16 else (6, 7)
+            jh = torch.where(ins[bs], rect_j[kh] + RDO.scalar_product_f32(
+                lam_rd, _PART_BITS[bs][2]), inf)
+            jv = torch.where(ins[bs], rect_j[kv] + RDO.scalar_product_f32(
+                lam_rd, _PART_BITS[bs][3]), inf)
+            j_at = torch.minimum(torch.minimum(j_bs, j_split),
+                                 torch.minimum(jh, jv))
+            choice = torch.where(j_at == j_bs, 0, torch.where(
+                j_at == jh, 1, torch.where(j_at == jv, 2, 3)))
+            use[bs] = choice == 0
+        else:
+            use[bs] = j_bs <= j_split
+            choice = torch.where(use[bs], 0, 3)
+            j_at = torch.where(use[bs], j_bs, j_split)
         maps[f"j_split{bs}"] = j_split
         maps[f"j{bs}"] = j_bs
         maps[f"j_at{bs}"] = j_at
+        maps[f"choice{bs}"] = choice
     return use[16], use[32], use[64] & ins[64], maps
+
+
+def _kind_map(choice16, choice32, use64):
+    """The per-8x8-cell leaf kind (0..3 square 8/16/32/64, RECT_KINDS 4..7)
+    from the merge's choices at the 16 and 32 nodes (0 NONE, 1 HORZ,
+    2 VERT, 3 SPLIT; [S, ...] maps) and its 64 decision."""
+    c16 = _up1(choice16, 2)
+    kind16 = torch.where(c16 == 0, 1, torch.where(
+        c16 == 1, 4, torch.where(c16 == 2, 5, 0)))
+    c32 = _up1(choice32, 4)
+    kind32 = torch.where(c32 == 0, 2, torch.where(
+        c32 == 1, 6, torch.where(c32 == 2, 7, -1)))
+    return torch.where(_up1(use64, 8), 3,
+                       torch.where(kind32 >= 0, kind32, kind16))
 
 
 def _blocksum2(lat):
@@ -1013,12 +1232,13 @@ def build_b_frame_encoder_dyn(ph: int, pw: int, mi_rows: int, mi_cols: int,
                               cdef: bool = False, compound: bool = False,
                               bd: int = 8, filt: int = 0, rdo: bool = False,
                               nrefs: int = 2, lr: bool = False,
-                              aq: bool = False):
+                              aq: bool = False, txs: bool = False,
+                              rect: bool = False):
     """The multi-reference step for one geometry: step(sy, su, sv,
     r0_y, r0_u, r0_v, r1_y, r1_u, r1_v[, r2_y, r2_u, r2_v], qindex, lf_y,
     lf_u, lf_v[, qmap]); compound=True adds the COMPOUND_AVERAGE of
     (ref0, ref1), nrefs=3 a third single-prediction reference
     (counterpart of the reference's jitted build_b_frame_encoder_dyn)."""
     return p_frame_step(ph, pw, mi_rows, mi_cols, nrefs=nrefs,
-                        compound=compound, bd=bd, rdo=rdo, filt=filt,
-                        cdef=cdef, lr=lr, aq=aq)
+                        compound=compound, bd=bd, rdo=rdo, txs=txs,
+                        filt=filt, cdef=cdef, lr=lr, rect=rect, aq=aq)

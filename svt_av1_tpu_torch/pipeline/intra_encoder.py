@@ -1,10 +1,15 @@
 """Intra frame encoder in PyTorch: wavefront sweeps of batched blocks.
 
-Port of svt_av1_tpu/pipeline/intra_encoder.py with rich=False,
-ibc=False, at 8 or 10 bits: ``frame_step`` (preset 8: uniform 8x8 luma
-/ 4x4 chroma blocks) and ``frame_step16`` (presets 6-7: 16x16 units
-that keep the 16x16 block or split into four 8x8 blocks by RD cost);
-13 base luma modes, DC chroma, DCT residuals.
+Port of svt_av1_tpu/pipeline/intra_encoder.py with ibc=False, at 8
+or 10 bits: ``frame_step`` (uniform 8x8 luma / 4x4 chroma blocks) and
+``frame_step16`` (16x16 units that keep the 16x16 block or split into
+four 8x8 blocks by RD cost: the keyframes of inter streams at presets
+0-7).  Presets 6-8 search the 13 base luma modes with DC chroma; presets
+0-5 (rich=True) search 61 luma candidates (the 13 base modes and angle
+deltas -3..3 on the eight directional ones) and a joint U+V pick among
+DC / V / H / SMOOTH (each with its derived tx type) and chroma from luma
+(CFL, alphas -16..16 per plane).  Residuals are DCT but for the derived
+chroma types.
 
 A block predicts from its reconstructed above/left (and above-right)
 neighbours, so blocks are coded in staircase-diagonal order d = 2r + c:
@@ -32,6 +37,21 @@ from svt_av1_tpu_torch.pipeline.inter_encoder import _coeff_bits
 
 LUMA_BS = 8
 CHROMA_BS = 4
+UV_CFL_ID = 13     # UV_CFL_PRED symbol (spec intra_frame_uv_mode)
+
+# mode-decision candidate lists.  The rich set (presets <= 5) adds
+# +-1..3 angle deltas on every directional base (ref angle-delta
+# candidate injection, EbModeDecision.c:1120+); chroma then picks among
+# DC / V / H / SMOOTH and CFL.
+DIR_MODES = (intra.V, intra.H, intra.D45, intra.D135, intra.D113,
+             intra.D157, intra.D203, intra.D67)
+RICH_MODES = tuple(intra.ALL_MODES) + tuple(
+    (m, d) for m in DIR_MODES for d in (-3, -2, -1, 1, 2, 3))
+UV_MODES = (intra.DC, intra.V, intra.H, intra.SMOOTH)
+# intra chroma tx type is DERIVED from the uv mode (spec compute_tx_type
+# -> Mode_To_Txfm_Type; ref intra_mode_to_tx_type, EbModeDecision.c:1851)
+UV_TX = {intra.DC: T.DCT_DCT, intra.V: T.ADST_DCT,
+         intra.H: T.DCT_ADST, intra.SMOOTH: T.ADST_ADST}
 
 
 def _cand_tables(cands):
@@ -58,20 +78,96 @@ def _encode_plane_batch(src, pred, qindex, tx_size: int, bd: int = 8,
 
 
 @functools.lru_cache(maxsize=8)
-def _static_maps(nbh: int, nbw: int, device: torch.device):
+def _static_maps(nbh: int, nbw: int, device: torch.device,
+                 rich: bool = False):
     """Above-right / below-left availability (padded with an invalid
-    row/col) and the candidate tables, as tensors on ``device``."""
+    row/col) and the candidate tables (mode ids, angle deltas, D203
+    flags), as tensors on ``device``."""
     ar_avail_np, bl_avail_np = intra.edge_availability(nbh, nbw)
     ar_pad = np.zeros((nbh + 1, nbw + 1), bool)
     ar_pad[:nbh, :nbw] = ar_avail_np
     bl_pad = np.zeros((nbh + 1, nbw + 1), bool)
     bl_pad[:nbh, :nbw] = bl_avail_np
-    mode_ids, _deltas, d203 = _cand_tables(tuple(intra.ALL_MODES))
+    mode_ids, deltas, d203 = _cand_tables(_luma_cands(rich))
     t = lambda a: torch.as_tensor(a, device=device)
-    return t(ar_pad), t(bl_pad), t(mode_ids), t(d203)
+    return t(ar_pad), t(bl_pad), t(mode_ids), t(deltas), t(d203)
 
 
-def frame_step(sy, su, sv, qindex: int, bd: int = 8):
+def _luma_cands(rich: bool):
+    return RICH_MODES if rich else tuple(intra.ALL_MODES)
+
+
+def _chroma_search(su_b, sv_b, cp_u, cp_v, rec_y, qindex: int, tx_c: int,
+                   bd: int):
+    """The rich joint U+V chroma pick of a [B, ck, ck] chroma batch: each
+    of UV_MODES coded with its derived tx type, plus the CFL candidate
+    (spec 7.11.5; ref cfl_luma_subsampling_420 / subtract_average /
+    cfl_predict, EbIntraPrediction.c:1303-1379): the AC of the block's
+    reconstructed luma in Q3, an alpha in -16..16 searched per plane
+    against the source on top of the DC prediction, never picked when
+    both alphas are 0 (no joint-sign code).  The winner has the least
+    U+V SSE (first index on ties).  cp_u / cp_v: [B, 4, ck, ck] DC / V /
+    H / SMOOTH predictions; rec_y [B, 2ck, 2ck].  Returns (uv mode ids,
+    U levels, U recon, V levels, V recon, SSE, coefficient bits, CFL
+    alpha U, CFL alpha V) of the winners."""
+    dev = su_b.device
+    lvl_u, rec_u, lvl_v, rec_v, sse_c, bits_c = [], [], [], [], [], []
+    sse = lambda a, b: ((a - b) ** 2).sum((-1, -2), dtype=torch.int32)
+    for i, cm in enumerate(UV_MODES):
+        li_u, ri_u = _encode_plane_batch(su_b, cp_u[:, i], qindex, tx_c, bd,
+                                         UV_TX[cm])
+        li_v, ri_v = _encode_plane_batch(sv_b, cp_v[:, i], qindex, tx_c, bd,
+                                         UV_TX[cm])
+        lvl_u.append(li_u)
+        rec_u.append(ri_u)
+        lvl_v.append(li_v)
+        rec_v.append(ri_v)
+        sse_c.append(sse(su_b, ri_u) + sse(sv_b, ri_v))
+        bits_c.append(_coeff_bits(li_u) + _coeff_bits(li_v))
+    ck = su_b.shape[-1]
+    shift = int(np.log2(ck * ck))
+    hi = (1 << bd) - 1
+    lq3 = ((rec_y[:, 0::2, 0::2] + rec_y[:, 0::2, 1::2]
+            + rec_y[:, 1::2, 0::2] + rec_y[:, 1::2, 1::2]) << 1)
+    lavg = (lq3.sum((-1, -2), dtype=torch.int32)
+            + (1 << (shift - 1))) >> shift
+    ac = lq3 - lavg[:, None, None]
+    alphas = torch.arange(-16, 17, dtype=torch.int32, device=dev)
+    scaled = alphas[None, :, None, None] * ac[:, None]
+    scq = torch.where(scaled >= 0, (scaled + 32) >> 6,
+                      -((-scaled + 32) >> 6))
+    lanes = torch.arange(su_b.shape[0], device=dev)
+    cfl_l, cfl_r, cfl_a, sse_cfl, bits_cfl = [], [], [], 0, 0
+    for sp_, dc_ in ((su_b, cp_u[:, 0]), (sv_b, cp_v[:, 0])):
+        pcand = torch.clamp(dc_[:, None] + scq, 0, hi)
+        ai = torch.argmin(((sp_[:, None] - pcand) ** 2).sum(
+            (-1, -2), dtype=torch.int32), 1)
+        cfl_a.append(alphas[ai])
+        li, ri = _encode_plane_batch(sp_, pcand[lanes, ai], qindex, tx_c, bd,
+                                     T.DCT_DCT)
+        cfl_l.append(li)
+        cfl_r.append(ri)
+        sse_cfl = sse_cfl + sse(sp_, ri)
+        bits_cfl = bits_cfl + _coeff_bits(li)
+    both0 = (cfl_a[0] == 0) & (cfl_a[1] == 0)
+    sse_c.append(sse_cfl + both0.to(torch.int32) * (1 << 30))
+    bits_c.append(bits_cfl)
+    lvl_u.append(cfl_l[0])
+    rec_u.append(cfl_r[0])
+    lvl_v.append(cfl_l[1])
+    rec_v.append(cfl_r[1])
+    sse_all = torch.stack(sse_c, 1)
+    bc = torch.argmin(sse_all, 1)
+    pick = lambda lst: torch.stack(lst, 1)[lanes, bc]
+    uv_ids = torch.tensor(UV_MODES + (UV_CFL_ID,), dtype=torch.int32,
+                          device=dev)
+    is_cfl = bc == len(UV_MODES)
+    return (uv_ids[bc], pick(lvl_u), pick(rec_u), pick(lvl_v), pick(rec_v),
+            sse_all[lanes, bc], torch.stack(bits_c, 1)[lanes, bc],
+            torch.where(is_cfl, cfl_a[0], 0), torch.where(is_cfl, cfl_a[1], 0))
+
+
+def frame_step(sy, su, sv, qindex: int, bd: int = 8, rich: bool = False):
     """Full-frame intra encode of a block grid, or of a batch of S
     frames' block grids.
 
@@ -82,17 +178,21 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
     qindex a Python int, shared by the batch.
     -> (modes [nbh,nbw] u8, levels_y [nbh,nbw,8,8] i16, levels_u,
         levels_v [nbh,nbw,4,4] i16, recon_y [nbh,nbw,8,8], recon_u,
-        recon_v: u8 at 8 bits, i16 at 10 (MC.pixel_dtype)) — the
-        reference's output tuple with dynamic-q dtypes; each with the
-        leading [S] for a batch.
+        recon_v: u8 at 8 bits, i16 at 10 (MC.pixel_dtype)
+        [, angle deltas [nbh,nbw] i8, uv modes u8, cfl alphas
+        [nbh,nbw,2] i8 — rich]) — the reference's output tuple with
+        dynamic-q dtypes; each with the leading [S] for a batch.
+    rich=True (presets <= 5): the 61 luma candidates and the rich chroma
+    pick (_chroma_search).
     """
     if sy.dim() == 4:
         return tuple(o[0] for o in frame_step(sy[None], su[None], sv[None],
-                                              qindex, bd))
+                                              qindex, bd, rich))
     dev = sy.device
     S, nbh, nbw = sy.shape[:3]
-    cands = tuple(intra.ALL_MODES)
-    ar_pad, bl_pad, mode_ids, d203 = _static_maps(nbh, nbw, dev)
+    cands = _luma_cands(rich)
+    ar_pad, bl_pad, mode_ids, deltas, d203 = _static_maps(nbh, nbw, dev,
+                                                          rich)
     # staircase wavefront d = 2r + c: the above-right neighbor (r-1, c+1)
     # lands on d-1, so spec-available above-right rows are real recon
     B = min(nbh, (nbw + 1) // 2)
@@ -104,8 +204,9 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
                                dtype=torch.int32, device=dev)
     ry, ru, rv = z(LUMA_BS), z(CHROMA_BS), z(CHROMA_BS)
     ly, lu, lv = z(LUMA_BS), z(CHROMA_BS), z(CHROMA_BS)
-    modes = torch.zeros((S, nbh + 1, nbw + 1), dtype=torch.int32,
-                        device=dev)
+    grid = lambda *tail: torch.zeros((S, nbh + 1, nbw + 1, *tail),
+                                     dtype=torch.int32, device=dev)
+    modes, angles, uvm, cfl = grid(), grid(), grid(), grid(2)
     ar_b = torch.arange(B, device=dev)
     # the diagonal's lanes of every frame as one batch: [S, B, ...] ->
     # [S*B, ...], a per-lane mask [B] repeated for each frame
@@ -140,8 +241,8 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
             modes=cands, above_ext=above_ext, ar_avail=lanes(ar_avail))
         src = flat(sy[:, rc, cc])
         sse = ((preds - src[:, None]) ** 2).sum((-1, -2), dtype=torch.int32)
-        # D203 reads below-left pixels the wavefront cannot provide where
-        # the spec makes them available: exclude it there
+        # D203 (all deltas) reads below-left pixels the wavefront cannot
+        # provide where the spec makes them available: exclude it there
         sse = sse + (d203[None, :] & bl_avail[:, None]).to(torch.int32) \
             * (1 << 30)
         best = torch.argmin(sse, dim=1)
@@ -151,25 +252,43 @@ def frame_step(sy, su, sv, qindex: int, bd: int = 8):
         ly[:, rs, cs] = unflat(lvls)
         modes[:, rs, cs] = unflat(mode_ids[best])
 
-        # ---- chroma: DC prediction, derived DCT ----
-        for rp, lp, sp in ((ru, lu, su), (rv, lv, sv)):
-            above_c = flat(rp[:, r_up, cs, CHROMA_BS - 1, :])
-            left_c = flat(rp[:, rs, c_lf, :, CHROMA_BS - 1])
-            tl_c = flat(rp[:, r_up, c_lf, CHROMA_BS - 1, CHROMA_BS - 1])
-            cpred = intra.predict_all_modes(
-                above_c, left_c, tl_c, ha_l, hl_l, CHROMA_BS, CHROMA_BS, bd,
-                modes=(intra.DC,))[:, 0]
-            lc, rec_c = _encode_plane_batch(flat(sp[:, rc, cc]), cpred,
-                                            qindex, T.TX_4X4, bd, T.DCT_DCT)
-            rp[:, rs, cs] = unflat(rec_c)
-            lp[:, rs, cs] = unflat(lc)
+        # ---- chroma: DC with its DCT, or the rich joint U+V pick ----
+        cps = []
+        for rp in (ru, rv):
+            cps.append(intra.predict_all_modes(
+                flat(rp[:, r_up, cs, CHROMA_BS - 1, :]),
+                flat(rp[:, rs, c_lf, :, CHROMA_BS - 1]),
+                flat(rp[:, r_up, c_lf, CHROMA_BS - 1, CHROMA_BS - 1]),
+                ha_l, hl_l, CHROMA_BS, CHROMA_BS, bd,
+                modes=UV_MODES if rich else (intra.DC,)))
+        su_b, sv_b = flat(su[:, rc, cc]), flat(sv[:, rc, cc])
+        if rich:
+            angles[:, rs, cs] = unflat(deltas[best])
+            (uv_sel, lu_, ru_, lv_, rv_, _, _, a_u,
+             a_v) = _chroma_search(su_b, sv_b, cps[0], cps[1], recon,
+                                   qindex, T.TX_4X4, bd)
+            uvm[:, rs, cs] = unflat(uv_sel)
+            cfl[:, rs, cs] = unflat(torch.stack([a_u, a_v], -1))
+        else:
+            lu_, ru_ = _encode_plane_batch(su_b, cps[0][:, 0], qindex,
+                                           T.TX_4X4, bd)
+            lv_, rv_ = _encode_plane_batch(sv_b, cps[1][:, 0], qindex,
+                                           T.TX_4X4, bd)
+        ru[:, rs, cs] = unflat(ru_)
+        lu[:, rs, cs] = unflat(lu_)
+        rv[:, rs, cs] = unflat(rv_)
+        lv[:, rs, cs] = unflat(lv_)
 
     trim = lambda a: a[:, :nbh, :nbw]
     px = MC.pixel_dtype(bd)
-    return (trim(modes).to(torch.uint8),
-            trim(ly).to(torch.int16), trim(lu).to(torch.int16),
-            trim(lv).to(torch.int16),
-            trim(ry).to(px), trim(ru).to(px), trim(rv).to(px))
+    out = (trim(modes).to(torch.uint8),
+           trim(ly).to(torch.int16), trim(lu).to(torch.int16),
+           trim(lv).to(torch.int16),
+           trim(ry).to(px), trim(ru).to(px), trim(rv).to(px))
+    if rich:
+        out = out + (trim(angles).to(torch.int8), trim(uvm).to(torch.uint8),
+                     trim(cfl).to(torch.int8))
+    return out
 
 
 # --- multi-size keyframe wavefront (presets 6-7) ----------------------------
@@ -214,10 +333,10 @@ def _rd_cost(sse, bits_f32, lam: float):
     return RDO.fma_f32(lam, bits_f32, sse.to(torch.float32))
 
 
-def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
+def frame_step16(sy, su, sv, qindex: int, bd: int = 8, rich: bool = False):
     """16x16-unit keyframe wavefront with the in-loop RD partition
     select of the RD presets (port of the reference package's
-    frame_step16 with rich=False).
+    frame_step16).
 
     Each staircase diagonal of 16x16 units runs five batched encodes:
     the four 8x8 sub-blocks in z-order (each the frame_step body: all 13
@@ -227,10 +346,14 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
     inside the block grid.  J = SSE (all planes) + lambda * bits in
     float32, evaluated as the reference does (pipeline/rdo.py).
 
+    rich=True (presets <= 5): every block searches the 61 luma
+    candidates and the rich chroma set (_chroma_search; its coefficient
+    bits join J).
+
     sy [nbh,nbw,8,8], su/sv [nbh,nbw,4,4] source blocks; qindex a Python
-    int.  -> frame_step's tuple + (angle deltas [nbh,nbw] i8 (0),
-    uv modes u8 (DC), cfl alphas [nbh,nbw,2] i8 (0), sizes [nbh,nbw] u8
-    (8 or 16 per 8x8 cell), levels16_y [nuh,nuw,16,16] i16,
+    int.  -> frame_step's tuple + (angle deltas [nbh,nbw] i8, uv modes
+    u8, cfl alphas [nbh,nbw,2] i8 (0 / DC / 0 without rich), sizes
+    [nbh,nbw] u8 (8 or 16 per 8x8 cell), levels16_y [nuh,nuw,16,16] i16,
     levels16_u / levels16_v [nuh,nuw,8,8] i16 (zero where the unit
     split)) — the reference's dynamic-q output tuple.
     """
@@ -239,8 +362,9 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
     nuh, nuw = -(-nbh // 2), -(-nbw // 2)
     BU = min(nuh, (nuw + 1) // 2)
     ndiag = 2 * nuh + nuw - 2
-    cands = tuple(intra.ALL_MODES)
-    _, _, mode_ids, d203 = _static_maps(nbh, nbw, dev)
+    cands = _luma_cands(rich)
+    uv_cands = UV_MODES if rich else (intra.DC,)
+    _, _, mode_ids, deltas, d203 = _static_maps(nbh, nbw, dev, rich)
     ar8_pad, bl8_pad, arU_pad, blU_pad, legal_pad = _static_maps16(
         nbh, nbw, dev)
     ac = int(_tbl.spec_tables()[f"ac_qlookup_{bd}"][qindex])
@@ -259,19 +383,30 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
     ly8, lu8, lv8 = z(nbh, nbw, LUMA_BS), z(nbh, nbw, CHROMA_BS), \
         z(nbh, nbw, CHROMA_BS)
     ly16, lu16, lv16 = z(nuh, nuw, 16), z(nuh, nuw, 8), z(nuh, nuw, 8)
-    modes = torch.zeros((nbh + 1, nbw + 1), dtype=torch.int32, device=dev)
+    grid = lambda *tail: torch.zeros((nbh + 1, nbw + 1, *tail),
+                                     dtype=torch.int32, device=dev)
+    modes, angles, cfl = grid(), grid(), grid(2)
+    uvm = torch.full((nbh + 1, nbw + 1), intra.DC, dtype=torch.int32,
+                     device=dev)
     size8 = torch.full((nbh + 1, nbw + 1), 8, dtype=torch.int32, device=dev)
     ar_u = torch.arange(BU, device=dev)
     zero_f = torch.zeros((BU,), dtype=torch.float32, device=dev)
 
-    def chroma_dc(su_b, sv_b, cp_u, cp_v, tx_c):
-        """DC chroma (the one uv candidate without the rich set): levels,
-        recon, SSE and coefficient bits of both planes."""
-        lu_, ru_ = _encode_plane_batch(su_b, cp_u, qindex, tx_c, bd)
-        lv_, rv_ = _encode_plane_batch(sv_b, cp_v, qindex, tx_c, bd)
+    def chroma(su_b, sv_b, cp_u, cp_v, rec_y, tx_c):
+        """The chroma of a block batch: DC (the one uv candidate without
+        the rich set), or the rich pick.  Returns (uv mode, U levels, U
+        recon, V levels, V recon, SSE, coefficient bits, CFL alphas
+        [B, 2])."""
+        if rich:
+            out = _chroma_search(su_b, sv_b, cp_u, cp_v, rec_y, qindex,
+                                 tx_c, bd)
+            return out[:7] + (torch.stack(out[7:], -1),)
+        lu_, ru_ = _encode_plane_batch(su_b, cp_u[:, 0], qindex, tx_c, bd)
+        lv_, rv_ = _encode_plane_batch(sv_b, cp_v[:, 0], qindex, tx_c, bd)
         sse = (((su_b - ru_) ** 2).sum((-1, -2), dtype=torch.int32)
                + ((sv_b - rv_) ** 2).sum((-1, -2), dtype=torch.int32))
-        return lu_, ru_, lv_, rv_, sse, _coeff_bits(lu_) + _coeff_bits(lv_)
+        return (intra.DC, lu_, ru_, lv_, rv_, sse,
+                _coeff_bits(lu_) + _coeff_bits(lv_), 0)
 
     def luma_pick(preds, src, bl_avail):
         sse = ((preds - src[:, None]) ** 2).sum((-1, -2), dtype=torch.int32)
@@ -302,14 +437,17 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
         ry[rb, cb] = recon
         ly8[rb, cb] = lvls
         modes[rb, cb] = mode_ids[best]
+        angles[rb, cb] = deltas[best]
         size8[rb, cb] = 8
         cp = [intra.predict_all_modes(
             rp[r_up, cb, CHROMA_BS - 1, :], rp[rb, c_lf, :, CHROMA_BS - 1],
             rp[r_up, c_lf, CHROMA_BS - 1, CHROMA_BS - 1], ha, hl,
-            CHROMA_BS, CHROMA_BS, bd, modes=(intra.DC,))[:, 0]
+            CHROMA_BS, CHROMA_BS, bd, modes=uv_cands)
             for rp in (ru, rv)]
-        lu_, ru_, lv_, rv_, sse_c, bits_c = chroma_dc(
-            su[rc, cc], sv[rc, cc], cp[0], cp[1], T.TX_4X4)
+        uv_, lu_, ru_, lv_, rv_, sse_c, bits_c, cfl_ = chroma(
+            su[rc, cc], sv[rc, cc], cp[0], cp[1], recon, T.TX_4X4)
+        uvm[rb, cb] = uv_
+        cfl[rb, cb] = cfl_
         ru[rb, cb] = ru_
         lu8[rb, cb] = lu_
         rv[rb, cb] = rv_
@@ -372,6 +510,7 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
         l16y, rec16y = _encode_plane_batch(src16, pred16, qindex,
                                            T.TX_16X16, bd)
         m16 = mode_ids[best16]
+        a16 = deltas[best16]
         cp16 = []
         for rp in (ru, rv):
             cp16.append(intra.predict_all_modes(
@@ -380,10 +519,10 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
                 torch.cat([rp[r0, clf, :, CHROMA_BS - 1],
                            rp[r1, clf, :, CHROMA_BS - 1]], -1),
                 rp[rup, clf, CHROMA_BS - 1, CHROMA_BS - 1], ha, hl, 8, 8,
-                bd, modes=(intra.DC,))[:, 0])
-        l16u, r16u, l16v, r16v, sse_c16, bits_c16 = chroma_dc(
+                bd, modes=uv_cands))
+        uv16, l16u, r16u, l16v, r16v, sse_c16, bits_c16, cfl16 = chroma(
             asm(su, rc0, rc1, cc0, cc1), asm(sv, rc0, rc1, cc0, cc1),
-            cp16[0], cp16[1], T.TX_8X8)
+            cp16[0], cp16[1], rec16y, T.TX_8X8)
         sse_y16 = ((src16 - rec16y) ** 2).sum((-1, -2), dtype=torch.int32)
         bits16 = ((_coeff_bits(l16y) + bits_c16).to(torch.float32)
                   + mode_f) + none16_f
@@ -402,21 +541,24 @@ def frame_step16(sy, su, sv, qindex: int, bd: int = 8):
                 w, r16v[:, i * 4: i * 4 + 4, j * 4: j * 4 + 4], rv[rb, cb])
             modes[rb, cb] = torch.where(use16, m16, modes[rb, cb])
             size8[rb, cb] = torch.where(use16, 16, size8[rb, cb])
+            if rich:
+                angles[rb, cb] = torch.where(use16, a16, angles[rb, cb])
+                uvm[rb, cb] = torch.where(use16, uv16, uvm[rb, cb])
+                cfl[rb, cb] = torch.where(use16[:, None], cfl16,
+                                          cfl[rb, cb])
         ly16[Ru, Cu] = torch.where(w, l16y, 0)
         lu16[Ru, Cu] = torch.where(w, l16u, 0)
         lv16[Ru, Cu] = torch.where(w, l16v, 0)
 
     trim = lambda a: a[:nbh, :nbw]
     trimu = lambda a: a[:nuh, :nuw]
-    zeros8 = lambda *shape: torch.zeros(shape, dtype=torch.int8, device=dev)
     px = MC.pixel_dtype(bd)
     return (trim(modes).to(torch.uint8),
             trim(ly8).to(torch.int16), trim(lu8).to(torch.int16),
             trim(lv8).to(torch.int16),
             trim(ry).to(px), trim(ru).to(px), trim(rv).to(px),
-            zeros8(nbh, nbw),
-            torch.full((nbh, nbw), intra.DC, dtype=torch.uint8, device=dev),
-            zeros8(nbh, nbw, 2),
+            trim(angles).to(torch.int8), trim(uvm).to(torch.uint8),
+            trim(cfl).to(torch.int8),
             trim(size8).to(torch.uint8),
             trimu(ly16).to(torch.int16), trimu(lu16).to(torch.int16),
             trimu(lv16).to(torch.int16))

@@ -94,7 +94,7 @@ class MultiStreamEncoder:
         step = PE.build_p_frame_encoder_dyn(
             ph64, pw64, e0.seq.mi_rows, e0.seq.mi_cols,
             cdef=cfg.enable_cdef, bd=cfg.bit_depth, rdo=e0._rdo,
-            filt=cfg.interp_filter)
+            txs=e0._txs, filt=cfg.interp_filter, rect=e0._rect)
         sy, su, sv = e0._upload_stack(frames, ph64, pw64)
         lvls = e0._lf_levels(qindex, False)
         out = step(sy, su, sv, *self._refs, qindex, lvls[0], lvls[2],
@@ -122,10 +122,8 @@ class MultiStreamEncoder:
     def _rc_feedback(self, pkts: List[Packet], is_key: bool) -> None:
         """Streams run in lockstep with a SHARED q, so the controller that
         picks q (encs[0]'s) absorbs the mean per-stream bits (packets
-        bypass the per-frame update of a sequential encoder).  Rate
-        control is not ported (config.check_slice refuses it), so no
-        encoder has a controller yet and this does nothing."""
-        rc = getattr(self.encs[0], "_rc", None)
+        bypass the per-frame update of a sequential encoder)."""
+        rc = self.encs[0]._rc
         if rc is not None:
             mean_bits = sum(len(p.payload) for p in pkts) * 8 / len(pkts)
             rc.update(int(mean_bits), is_key)

@@ -14,10 +14,12 @@ HIERB = dict(width=W, height=H, qp=40, intra_period=-1, pred_structure=2,
              scene_change_detection=False, recon_output=True)
 
 
-def assert_same_tus(want, got):
+def assert_same_tus(want, got, qindex=False):
+    """qindex: also the TUs' qindex (rate control's per-frame pick)."""
     assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(want, got)):
         assert a.payload == b.payload, f"TU {i}"
+        assert not qindex or a.qindex == b.qindex, f"TU {i} qindex"
         assert (a.pts, a.show, a.display_idx, a.is_keyframe) == \
             (b.pts, b.show, b.display_idx, b.is_keyframe), f"TU {i}"
         assert (a.recon is None) == (b.recon is None), f"TU {i}"
@@ -66,10 +68,10 @@ def drive(enc, frames, qps=None):
     return out
 
 
-def encode_both(kw, frames, qps=None):
+def encode_both(kw, frames, qps=None, qindex=False):
     """The same frames (and push_qp overrides) through svt_av1_tpu's
-    Encoder and the port's, on the CPU; their TUs must be equal.
-    Returns the port's TUs."""
+    Encoder and the port's, on the CPU; their TUs (with qindex: and
+    their qindex) must be equal.  Returns the port's TUs."""
     from svt_av1_tpu import EncoderConfig as JConfig
     from svt_av1_tpu.pipeline.encoder import Encoder as JEncoder
     from svt_av1_tpu_torch import EncoderConfig
@@ -77,7 +79,7 @@ def encode_both(kw, frames, qps=None):
 
     want = drive(JEncoder(JConfig(**kw)), frames, qps)
     got = drive(Encoder(EncoderConfig(**kw), device="cpu"), frames, qps)
-    assert_same_tus(want, got)
+    assert_same_tus(want, got, qindex)
     return got
 
 
@@ -167,3 +169,26 @@ def run_both_clis(tmp_path, flags, files=("ivf", "rec", "stat")):
     for k in files:
         assert out["port"][k] == out["jax"][k], k
     return out["port"]
+
+
+def band_clip(w, h, n, axis=1):
+    """tests/test_rect.py's clip: two bands moving differently, their
+    boundary off the 16/32 node grid, so rect leaves pay (axis 1: the
+    top band slides right; axis 0: the left band slides down)."""
+    from svt_av1_tpu.io.yuv import synthetic_frame
+
+    base = synthetic_frame(w, h, seed=3)
+    hcut, wcut = h // 2 + 8, w // 2 + 24
+    frames = []
+    for i in range(n):
+        f = synthetic_frame(w, h, seed=3)
+        if axis == 1:
+            f.y[:hcut] = np.roll(base.y[:hcut], 3 * i, 1)
+            f.y[hcut:] = base.y[hcut:]
+        else:
+            f.y[:, :wcut] = np.roll(base.y[:, :wcut], 3 * i, 0)
+            f.y[:, wcut:] = base.y[:, wcut:]
+        f.u[:] = base.u
+        f.v[:] = base.v
+        frames.append(f)
+    return frames

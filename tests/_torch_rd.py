@@ -36,13 +36,14 @@ def step_planes(nrefs: int, w: int = W, h: int = H, seed: int = 0):
 
 
 def check_step(nrefs: int, compound: bool, filt: int, qs, gm: bool = False,
-               w: int = W, h: int = H, ldb: bool = False):
+               w: int = W, h: int = H, ldb: bool = False, p5: bool = False):
     """Run svt_av1_tpu's jitted RD step and the port's on
     step_planes(nrefs) at each qindex of qs; every output must be equal.
     The reference step is built with the keywords its Encoder passes
-    (hier-B, IPPP with gm, or low-delay B with ldb), so one compile
-    serves the encoder tests of the same file.  Returns the port's
-    outputs of the last q by name."""
+    (hier-B, IPPP with gm, or low-delay B with ldb; p5: at presets <= 5,
+    with the tx-type search and rect leaves), so one compile serves the
+    encoder tests of the same file.  Returns the port's outputs of the
+    last q by name."""
     import jax.numpy as jnp
     import torch
 
@@ -56,29 +57,31 @@ def check_step(nrefs: int, compound: bool, filt: int, qs, gm: bool = False,
     geo = (ph, pw, mi_rows, mi_cols)
     if nrefs == 1 and gm:
         jfn = JPE.build_p_frame_encoder_dyn(
-            *geo, cdef=True, bd=8, rdo=True, txs=False, filt=filt, gm=True,
-            lr=False, rect=False)
+            *geo, cdef=True, bd=8, rdo=True, txs=p5, filt=filt, gm=True,
+            lr=False, rect=p5)
     elif nrefs == 1:
         jfn = JPE.build_p_frame_encoder_dyn(
-            *geo, cdef=True, bd=8, rdo=True, txs=False, filt=filt, lr=False,
-            rect=False, aq=False)
+            *geo, cdef=True, bd=8, rdo=True, txs=p5, filt=filt, lr=False,
+            rect=p5, aq=False)
     elif ldb:
         jfn = JPE.build_b_frame_encoder_dyn(
-            *geo, cdef=True, bd=8, rdo=True, txs=False, filt=filt, lr=False,
-            rect=False)
+            *geo, cdef=True, bd=8, rdo=True, txs=p5, filt=filt, lr=False,
+            rect=p5)
     else:
         jfn = JPE.build_b_frame_encoder_dyn(
-            *geo, cdef=True, compound=compound, bd=8, rdo=True, txs=False,
-            filt=filt, lr=False, rect=False, nrefs=nrefs, aq=False)
+            *geo, cdef=True, compound=compound, bd=8, rdo=True, txs=p5,
+            filt=filt, lr=False, rect=p5, nrefs=nrefs, aq=False)
     if nrefs == 1:
         tfn = TPE.build_p_frame_encoder_dyn(*geo, cdef=True, bd=8, rdo=True,
-                                            filt=filt, gm=gm)
+                                            txs=p5, filt=filt, gm=gm,
+                                            rect=p5)
     else:
         tfn = TPE.build_b_frame_encoder_dyn(*geo, cdef=True,
                                             compound=compound, bd=8,
-                                            filt=filt, rdo=True, nrefs=nrefs)
+                                            filt=filt, rdo=True, nrefs=nrefs,
+                                            txs=p5, rect=p5)
     gmv = (11, -6)          # 1/8 pel: a subpel global translation
-    names = TPE.inter_layout(nrefs, compound, False, False, False)
+    names = TPE.inter_layout(nrefs, compound, p5, False, False, rect=p5)
     for q in qs:
         ly, lu, lv = JDB.pick_filter_levels(q, is_key=False)
         jargs = [jnp.asarray(p) for p in (*src, *refs)]

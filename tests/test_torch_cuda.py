@@ -345,6 +345,53 @@ def test_rd_keyframe_wavefront_card_equals_cpu(cuda):
             assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.cuda
+def test_p5_b_step_card_equals_cpu(cuda):
+    """The preset-5 step (tx-type search, rect leaves) from three
+    references with compound prediction at 192x128: 128 gather launches
+    (the preset-6 step's 80 and the rect leaves' 48), every output equal
+    to the CPU run's."""
+    from _torch_rd import step_planes
+    from svt_av1_tpu_torch.pipeline import inter_encoder as TPE
+    src, refs = step_planes(3)
+    planes = [T_(np.ascontiguousarray(p)) for p in (*src, *refs)]
+    step = TPE.build_b_frame_encoder_dyn(128, 192, 32, 48, cdef=True,
+                                         compound=True, rdo=True, nrefs=3,
+                                         txs=True, rect=True)
+    for q, lf in ((60, (6, 3, 3)), (200, (30, 12, 12))):
+        before = TG.gather_tiles.launches
+        card = step(*(p.to(cuda) for p in planes), q, *lf)
+        torch.cuda.synchronize()
+        assert TG.gather_tiles.launches - before == 128
+        cpu = step(*planes, q, *lf)
+        assert len(card) == len(cpu) == 13
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_rich_keyframe_wavefronts_card_equal_cpu(cuda):
+    """The rich intra set (presets <= 5) on the card equals its CPU run:
+    the 8x8 wavefront on a batch of two frames and the 16x16-unit
+    search at 200x136 (the 61-way luma and 5-way chroma argmins break
+    ties at the first index on both)."""
+    from svt_av1_tpu_torch.io.yuv import synthetic_frame
+    from svt_av1_tpu_torch.pipeline import intra_encoder as TIE
+    f = synthetic_frame(200, 136, seed=11)
+    yy, xx = np.mgrid[0:136, 0:200]
+    f.y[:, :96] = ((xx * 13 + yy * 29) // 7 % 220)[:, :96]
+    src = (TIE.block_planes(f.y, 8), TIE.block_planes(f.u, 4),
+           TIE.block_planes(f.v, 4))
+    stack = [np.stack([p, p[::-1].copy()]) for p in src]
+    for fn, inp in ((TIE.frame_step16, src), (TIE.frame_step, stack)):
+        card = fn(*(T_(np.ascontiguousarray(p)).to(cuda) for p in inp), 80,
+                  rich=True)
+        cpu = fn(*(T_(np.ascontiguousarray(p)) for p in inp), 80, rich=True)
+        assert (cpu[7] != 0).any()
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
 # (plane dtype, bs, pad, reach, halo, off) of the preset-6 step's grid
 # sites at the 1080p geometry: the dense refine per size, the 64x64 MC
 # patch (me64, compound candidate, per-size MC) and the per-size MC's

@@ -26,9 +26,6 @@ VOD = dict(qp=40, bit_depth=10, pred_structure=2, hierarchical_levels=3,
            enable_adaptive_quantization=True, recon_output=False)
 
 GATES = [
-    ("enc_mode<=5 (preset 5)", dict(enc_mode=5)),
-    ("enc_mode<=5 (preset 0)", dict(enc_mode=0)),
-    ("only CQP", dict(rate_control_mode=2, target_bit_rate=1000)),
     ("enable_warped_motion", dict(enable_warped_motion=True)),
     ("IBC", dict(screen_content_mode=1)),
     ("enable_film_grain", dict(enable_film_grain=10)),
@@ -68,7 +65,16 @@ def test_unsupported_config_raises_by_name(label, extra):
                                         enable_adaptive_quantization=2),
                                    VOD,
                                    dict(intra_period=-2, device_batch=4),
-                                   dict(intra_period=3, num_gop_shards=2)])
+                                   dict(intra_period=3, num_gop_shards=2),
+                                   # presets 0-5 and rate control 1-3
+                                   dict(enc_mode=5), dict(enc_mode=0),
+                                   dict(rate_control_mode=1,
+                                        target_bit_rate=1000),
+                                   dict(rate_control_mode=2,
+                                        target_bit_rate=1000),
+                                   dict(rate_control_mode=3,
+                                        target_bit_rate=1000,
+                                        pred_structure=2)])
 def test_slice_configs_pass(extra):
     check_slice(EncoderConfig(**{**LDP, **extra}))
 
@@ -77,10 +83,8 @@ def test_default_config_is_all_intra_and_allowed():
     check_slice(EncoderConfig(width=64, height=64))
 
 
-@pytest.mark.parametrize("kw", [dict(rdo=True, txs=True),
-                                dict(rdo=True, rect=True),
-                                dict(compound=True, nrefs=1), dict(nrefs=4),
-                                dict(filters=False), dict(txs=True)])
+@pytest.mark.parametrize("kw", [dict(compound=True, nrefs=1), dict(nrefs=4),
+                                dict(filters=False)])
 def test_p_frame_step_refuses_unported_variants(kw):
     with pytest.raises(NotImplementedError):
         TPE.p_frame_step(64, 64, 16, 16, **kw)
@@ -88,7 +92,11 @@ def test_p_frame_step_refuses_unported_variants(kw):
 
 @pytest.mark.parametrize("kw", [dict(bd=10), dict(lr=True), dict(aq=True),
                                 dict(bd=10, rdo=True, nrefs=3,
-                                     compound=True, lr=True, aq=True)])
+                                     compound=True, lr=True, aq=True),
+                                # presets <= 5 (without rdo: ignored, as
+                                # in the reference)
+                                dict(rdo=True, txs=True),
+                                dict(rdo=True, rect=True), dict(txs=True)])
 def test_p_frame_step_builds_ported_variants(kw):
     assert callable(TPE.p_frame_step(64, 64, 16, 16, **kw))
 

@@ -19,7 +19,10 @@ hand, so run this after a change of CPU or of jax:
      against XLA's dot on random operands at several M;
   3. mismatching coefficients of TT.fwd_txfm2d_batch against
      JT.fwd_txfm2d_batch for all 19 tx sizes at several batch sizes, the
-     square ones also at their block count in a 1280x720 frame.
+     square ones also at their block count in a 1280x720 frame;
+  4. the same for IDTX (the inter tx-type search of presets <= 5: an
+     identity matrix through the same two dots) at every size, on 8-
+     and 10-bit residuals.
 
 Exits 1 if a tree leaves the lane model or any output differs.
 """
@@ -119,6 +122,23 @@ def main() -> int:
             bad = int((want != got).sum())
             ok &= bad == 0
             line.append(f"n={n}: {bad}/{want.size}")
+        print(f"   {h}x{w}: " + ", ".join(line))
+
+    print("4. fwd_txfm2d_batch, port vs JAX, IDTX")
+    for tx in range(JT.TX_SIZES_ALL):
+        h, w = JT.TX_H[tx], JT.TX_W[tx]
+        line = []
+        for bd in (8, 10):
+            hi = (1 << bd) - 1
+            for n in (1, 7, 500):
+                r = rng.integers(-hi, hi + 1, (n, h, w)).astype(np.int32)
+                want = np.asarray(JT.fwd_txfm2d_batch(jnp.asarray(r), tx,
+                                                      JT.IDTX, bd))
+                got = TT.fwd_txfm2d_batch(torch.from_numpy(r), tx, JT.IDTX,
+                                          bd).numpy()
+                bad = int((want != got).sum())
+                ok &= bad == 0
+                line.append(f"{bd}-bit n={n}: {bad}/{want.size}")
         print(f"   {h}x{w}: " + ", ".join(line))
     print("all equal" if ok else "DIFFERENCES FOUND")
     return 0 if ok else 1

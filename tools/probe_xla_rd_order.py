@@ -23,7 +23,11 @@ CPU or the jax version.  Run this after such a change:
      order of each level's 2x2 float32 sum: held against
      inter_encoder.rd_merge (rdo.sum4_f32).
   4. ``_coeff_bits``'s float32 ceil(log2(|l| + 1)) against the exact
-     bit length for every |l| < 2^16 (the port takes the bit length).
+     bit length for every |l| < 2^16 (the port takes the bit length);
+  5. the merge of presets <= 5 (a replica with the rect hypotheses: the
+     halves' J summed into node maps, HORZ / VERT beside NONE and SPLIT
+     at the 16 and 32 nodes, the choices by equality) held against
+     rd_merge with rect_j, with the 2x2 sum order of each level.
 
 Each line prints the mismatch counts; exits 1 if the port's helper
 differs from XLA anywhere.
@@ -58,6 +62,38 @@ def rd_merge_replica(d, r, ins, ac):
         j_at = jnp.where(j_bs <= j_split, j_bs, j_split)
         out.update({f"j_split{bs}": j_split, f"j{bs}": j_bs,
                     f"j_at{bs}": j_at})
+    return out
+
+
+def rd_merge_rect_replica(d, r, dr, rr, ins, ac):
+    """The reference's RD merge with rect leaves (svt_av1_tpu/pipeline/
+    inter_encoder.py:785, :878-880, :891-937) on per-size SSE d and bits
+    r and per rect kind the halves' SSE dr and bits rr: {name: map}."""
+    import jax.numpy as jnp
+
+    from svt_av1_tpu.pipeline.inter_encoder import _PART_BITS, _sum4
+
+    lam_rd = jnp.maximum(4, (ac * ac) >> 8).astype(jnp.float32)
+    jc = {bs: d[bs].astype(jnp.float32) + lam_rd * r[bs] for bs in d}
+    jr = {k: dr[k].astype(jnp.float32) + lam_rd * rr[k] for k in dr}
+    node = {k: (jr[k][0::2] + jr[k][1::2]) if k in (4, 6)
+            else (jr[k][:, 0::2] + jr[k][:, 1::2]) for k in jr}
+    inf = jnp.float32(3e38)
+    j_at = jc[8] + lam_rd * _PART_BITS[8][0]
+    out = {"j8": j_at}
+    for bs, (kh, kv) in ((16, (4, 5)), (32, (6, 7))):
+        j_split = _sum4(j_at) + lam_rd * _PART_BITS[bs][1]
+        j_bs = jnp.where(ins[bs], jc[bs] + lam_rd * _PART_BITS[bs][0], inf)
+        jh = jnp.where(ins[bs], node[kh] + lam_rd * _PART_BITS[bs][2], inf)
+        jv = jnp.where(ins[bs], node[kv] + lam_rd * _PART_BITS[bs][3], inf)
+        j_at = jnp.minimum(jnp.minimum(j_bs, j_split), jnp.minimum(jh, jv))
+        choice = jnp.where(j_at == j_bs, 0, jnp.where(
+            j_at == jh, 1, jnp.where(j_at == jv, 2, 3))).astype(jnp.uint8)
+        out.update({f"j_split{bs}": j_split, f"j{bs}": j_bs,
+                    f"j_at{bs}": j_at, f"choice{bs}": choice})
+    j_split = _sum4(j_at) + lam_rd * _PART_BITS[64][1]
+    j64 = jnp.where(ins[64], jc[64] + lam_rd * _PART_BITS[64][0], inf)
+    out.update({"j_split64": j_split, "j64": j64, "use64": j64 <= j_split})
     return out
 
 
@@ -181,6 +217,58 @@ def main() -> int:
     bad += n_port
     print(f"_coeff_bits, |l| < 2^16: differs from the port's bit length "
           f"at {n_port} of {lv.shape[0]}")
+    # 5. the merge with rect leaves (presets <= 5)
+    from svt_av1_tpu_torch.pipeline.inter_encoder import RECT_KINDS
+    merge = jax.jit(rd_merge_rect_replica)
+    for hh, ww in ((16, 24), (16, 32), (8, 8), (64, 112), (136, 240)):
+        shp = {bs: (hh * 8 // bs, ww * 8 // bs) for bs in (8, 16, 32, 64)}
+        rshp = {k: ((hh * 16 // ns, ww * 8 // ns) if s_ == "h" else
+                    (hh * 8 // ns, ww * 16 // ns))
+                for k, (ns, s_) in RECT_KINDS.items()}
+        d = {bs: rng.integers(0, 1 << 27, shp[bs]).astype(np.int32)
+             for bs in shp}
+        r = {bs: rng.integers(0, 1 << 14, shp[bs]).astype(np.int32)
+             for bs in shp}
+        # the halves of a node cost about half its whole block, so the
+        # rect choices compete with NONE and SPLIT
+        dr = {k: rng.integers(0, 1 << 26, rshp[k]).astype(np.int32)
+              for k in rshp}
+        rr = {k: rng.integers(0, 1 << 13, rshp[k]).astype(np.int32)
+              for k in rshp}
+        ins = {bs: rng.random(shp[bs]) < 0.9 for bs in (16, 32, 64)}
+        ac = 1828
+        got = merge(d, r, dr, rr, ins, jnp.int32(ac))
+        got = {k: np.asarray(v) for k, v in got.items()}
+        lam = float(max(4, (ac * ac) >> 8))
+        t = lambda a: torch.from_numpy(a)[None]
+        jc = {bs: RDO.fma_f32(lam, t(r[bs]).float(), t(d[bs]).float())
+              for bs in shp}
+        jr = {k: RDO.fma_f32(lam, t(rr[k]).float(), t(dr[k]).float())
+              for k in rshp}
+        node = {k: (jr[k][:, 0::2] + jr[k][:, 1::2]) if k in (4, 6)
+                else (jr[k][:, :, 0::2] + jr[k][:, :, 1::2]) for k in jr}
+        _, _, use64, port = rd_merge(
+            jc, lam, {bs: torch.from_numpy(m) for bs, m in ins.items()},
+            node)
+        port["use64"] = use64
+        orders = []
+        for bs, src in ((32, "j_at16"), (64, "j_at32")):
+            x = got[src]
+            a, b = x[0::2, 0::2], x[0::2, 1::2]
+            c, e = x[1::2, 0::2], x[1::2, 1::2]
+            s_ = np.float32(np.float32(lam) * np.float32(JPB[bs][1]))
+            y = got[f"j_split{bs}"]
+            seq = (y == (((a + b) + c) + e) + s_).all()
+            pair = (y == ((a + b) + (c + e)) + s_).all()
+            orders.append(f"{bs}: w{a.shape[1]} {'seq' if seq else ''}"
+                          f"{'pair' if pair else ''}")
+        n_port = sum(int((got[k] != port[k][0].numpy()).sum())
+                     for k in got)
+        picks = np.bincount(got["choice16"].ravel(), minlength=4)
+        bad += n_port
+        print(f"RD merge with rect [{hh}x{ww} cells]: 2x2 order by level "
+              f"{'; '.join(orders)}; choice16 counts {picks.tolist()}; "
+              f"maps differ from rd_merge at {n_port}")
     print("OK" if bad == 0 else f"MISMATCH ({bad})")
     return 0 if bad == 0 else 1
 
